@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-The kernels in `csrc/` have a plain C interface. They are compiled with
-`nvcc` for Hopper (`sm_90a`) into one shared library and loaded with
-`ctypes`. The build runs at first use, never at import: it needs the
-CUDA toolkit, which only a machine with a card has. The library lands in
+The kernels in `csrc/` have a plain C interface. Each source is compiled
+with `nvcc` for Hopper (`sm_90a`), all of them at once in parallel, and
+the objects are linked into one shared library loaded with `ctypes`. The
+build runs at first use, never at import: it needs the CUDA toolkit,
+which only a machine with a card has. The library lands in
 `build/quicked_tpu_torch/` at the repository root, named by a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one
 loads what is already there.
@@ -27,7 +28,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "quicked_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
@@ -61,6 +62,33 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libqtt_{h.hexdigest()[:16]}.so")
 
 
+def _compile(path: str) -> None:
+    """One nvcc per source, all started together, then one link."""
+    nvcc = _nvcc()
+    tmp = f"{path}.{os.getpid()}"
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    errors = []
+    for proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(out)
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    proc = subprocess.run([nvcc, "-shared", "-o", f"{tmp}.so", *objs],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + proc.stdout + proc.stderr)
+    for obj in objs:
+        os.remove(obj)
+    os.replace(f"{tmp}.so", path)
+
+
 def load() -> ctypes.CDLL:
     """Build the kernel library if needed and load it (once per process)."""
     global _lib, build_seconds
@@ -71,14 +99,7 @@ def load() -> ctypes.CDLL:
         path = library_path()
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *[s for s in _sources() if s.endswith(".cu")]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError("nvcc failed:\n" + proc.stdout
-                                   + proc.stderr)
-            os.replace(tmp, path)
+            _compile(path)
         lib = ctypes.CDLL(path)
         lib.qtt_error_string.restype = ctypes.c_char_p
         lib.qtt_error_string.argtypes = [ctypes.c_int]
@@ -96,12 +117,15 @@ class Kernel:
 
     `launches` grows by one each time the kernel is launched and by
     nothing else; a run resets it to see which kernels it went through.
+    `fallbacks` counts the lanes a kernel handed to its exact fallback
+    (the systolic kernel's ABORT lanes).
     """
 
     def __init__(self, symbol: str, argtypes: list):
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.fallbacks = 0
         self._fn = None
 
     def launch(self, *args) -> None:

@@ -1,13 +1,18 @@
 """Batch-first alignment engine on the card.
 
 The counterpart of quicked_tpu/aligner/batch.py (`banded_align_batch`,
-`banded_score_results`, `_finish`, `align_batch_full`, `bucket_keys`).
-Pairs are bucketed by band/text geometry and every bucket runs through
-the port's kernels: score batches through the banded fill, full batches
-through the full fill plus the on-device traceback, whatever the band's
-depth. What the JAX package routes by venue (host C lanes, rate probes,
-deep-band kernels, meshes) is not carried over: this engine has one
-path, the device one.
+`banded_score_results`, `hirschberg_level_splits_device`, `_finish`,
+`align_batch_full`, `bucket_keys`, `_lane_pad`). Pairs are bucketed by
+band/text geometry and every bucket runs through the port's kernels.
+Score batches take the score-kernel family of the JAX package's device
+route (`score_family`, from its batch.py:540-572): the thread-per-lane
+fill for shallow bands, the systolic kernel for deep ones, the carry-scan
+kernel for the rest of the deep batches and for tiny ones. Full batches
+take the full fill plus the on-device traceback. A Hirschberg split level
+whose bands are shallow runs the fill and the split epilogue on the card
+and reads back four numbers per task. What the JAX package routes by
+venue (host C lanes, rate probes, cold-shape deferral, meshes, the
+QUICKED_TPU_* switches) is not carried over: routing is by geometry only.
 """
 
 from __future__ import annotations
@@ -15,20 +20,36 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from quicked_tpu.cigar import Cigar
 from quicked_tpu.ops import myers_np
 from quicked_tpu.ops.batch_prep import extract_final_scores, prepare_banded_batch
 from quicked_tpu.params import QuickedAlgo, QuickedParams, QuickedStatus
 from quicked_tpu_torch.device import resolve_device
+from quicked_tpu_torch.ops.banded_cscan_cuda import cscan_staged
 from quicked_tpu_torch.ops.banded_cuda import fill_staged, stage_banded
+from quicked_tpu_torch.ops.banded_sysband_cuda import sysband_staged
 from quicked_tpu_torch.ops.banded_traceback_cuda import traceback_ops
+from quicked_tpu_torch.ops.hirschberg_split_cuda import hirschberg_split
 
 W = 64
 
 # Memory budget for one full-fill launch: the band snapshots are
 # NB*64*EBB*16 bytes per lane (Pv and Mv, 8 bytes each).
 FULL_FILL_BYTES_BUDGET = 1 << 30
+
+# The score-kernel route's bounds, the JAX package's own
+# (quicked_tpu/aligner/batch.py): the thread-per-lane fill up to
+# PALLAS_MAX_EBB band blocks; the carry-scan kernel for tiny batches of
+# deep-ish bands and for the deep batches the systolic kernel does not
+# take; the systolic kernel for SYSBAND_MIN_EBB..SYSBAND_MAX_EBB.
+PALLAS_MAX_EBB = 128
+CSCAN_MIN_EBB = 48
+CSCAN_MAX_B = 32
+SYSBAND_MIN_EBB = 192
+SYSBAND_MAX_EBB = 16000
+MIN_LANES = 8       # the JAX package's lane floor for shallow buckets
 
 
 @dataclasses.dataclass
@@ -48,6 +69,46 @@ def _raw_bytes(s) -> bytes:
     if isinstance(s, np.ndarray):
         return s.tobytes()
     return s.encode("ascii", errors="replace")
+
+
+def _lane_pad(n_live: int, ebb_p2: int) -> int:
+    """The padded lane count the JAX package gives a score bucket
+    (quicked_tpu/aligner/batch.py:_lane_pad): deep buckets take the pow2
+    of their pairs, shallow ones at least MIN_LANES. The port pads no
+    lanes; the count only decides the route."""
+    if ebb_p2 > PALLAS_MAX_EBB:
+        return _next_pow2(n_live)
+    return max(_next_pow2(n_live), MIN_LANES)
+
+
+def score_family(n_live: int, ebb_p2: int) -> str:
+    """The score kernel for a bucket of n_live pairs whose band bucket is
+    ebb_p2 blocks: "fill", "cscan" or "sysband", as the JAX package's
+    device route picks them (quicked_tpu/aligner/batch.py:540-572)."""
+    b_pad = _lane_pad(n_live, ebb_p2)
+    deep = ebb_p2 > PALLAS_MAX_EBB or \
+        (b_pad <= CSCAN_MAX_B and ebb_p2 >= CSCAN_MIN_EBB)
+    if not deep:
+        return "fill"
+    if SYSBAND_MIN_EBB <= ebb_p2 <= SYSBAND_MAX_EBB:
+        return "sysband"
+    return "cscan"
+
+
+def score_staged(st, family: str) -> dict:
+    """Run a staged score batch through the kernel of `family`."""
+    if family == "sysband":
+        return sysband_staged(st)
+    if family == "cscan":
+        return cscan_staged(st)
+    return fill_staged(st)
+
+
+def score_key(geo: myers_np.BandGeometry, finish: int) -> tuple[int, int]:
+    """Bucket key of a score pass over `finish` text columns: (pow2 of its
+    64-column blocks, pow2 of its score band's blocks)."""
+    return (_next_pow2(max(myers_np.div_ceil(int(finish), W), 1)),
+            _next_pow2(myers_np.div_ceil(geo.cutoff, W) + 1))
 
 
 def bucket_keys(plens, tlens, cutoffs, full: bool):
@@ -89,7 +150,9 @@ def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
             batch = prepare_banded_batch(
                 [patterns[i] for i in sub], [texts[i] for i in sub],
                 [cutoffs[i] for i in sub], full=not only_score)
-            out = fill_staged(stage_banded(batch, dev))
+            st = stage_banded(batch, dev)
+            out = (score_staged(st, score_family(len(sub), ebb_p2))
+                   if only_score else fill_staged(st))
             sc = extract_final_scores(batch, out["scores_by_k"].cpu().numpy())
             scores[sub] = sc[:len(sub)]
             if only_score:
@@ -138,16 +201,16 @@ def banded_score_results(patterns, texts, cutoffs, text_finish=None,
     for i in range(n):
         geos[i] = myers_np.band_geometry(len(patterns[i]), tlens[i],
                                          int(cutoffs[i]))
-        ebb = myers_np.div_ceil(geos[i].cutoff, W) + 1
-        nb = max(myers_np.div_ceil(int(text_finish[i]), W), 1)
-        by_key.setdefault((_next_pow2(nb), _next_pow2(ebb)), []).append(i)
+        by_key.setdefault(score_key(geos[i], text_finish[i]),
+                          []).append(i)
 
-    for idxs in by_key.values():
+    for (_, ebb_p2), idxs in by_key.items():
         batch = prepare_banded_batch(
             [patterns[i] for i in idxs], [texts[i] for i in idxs],
             [cutoffs[i] for i in idxs], full=False,
             text_finish=[text_finish[i] for i in idxs])
-        out = fill_staged(stage_banded(batch, dev))
+        out = score_staged(stage_banded(batch, dev),
+                           score_family(len(idxs), ebb_p2))
         sck_all = out["scores_by_k"].cpu().numpy()
         final_scores = extract_final_scores(batch, sck_all)
         pv64 = np.ascontiguousarray(out["pv"].cpu().numpy().view(np.uint64).T)
@@ -160,6 +223,60 @@ def banded_score_results(patterns, texts, cutoffs, text_finish=None,
                 score=int(final_scores[j]), pv64=pv64[j], mv64=mv64[j],
                 first=int(first[j]), last=int(last[j]), scores_k=sck[j],
                 prolog=int(batch.prolog[j]), geometry=geos[i])
+    return results
+
+
+def _hsplit_fused(batch, dev):
+    """Fill kernel and split epilogue over an interleaved fwd/rev level
+    batch, on `dev`; returns the four per-task vectors (pll, score_l,
+    score_r, feasible) as numpy."""
+    st = stage_banded(batch, dev)
+    out = fill_staged(st)
+
+    def task_vec(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            a[0::2], dtype=np.int32)).to(dev)
+
+    res = hirschberg_split(out, st.lanes["prolog"][0::2].contiguous(),
+                           task_vec(batch.plen), task_vec(batch.tlen))
+    return [x.cpu().numpy() for x in res]
+
+
+def hirschberg_level_splits_device(pats, txts, cos, mids, mids_r,
+                                   device="cuda"):
+    """A fused Hirschberg split level: the forward and reverse half passes
+    and the midpoint epilogue on the card, reading back O(tasks) numbers
+    instead of band planes (bpm_hirschberg.c:149-200's consumption, after
+    the kernel). Returns per task (pll, score_l, score_r) or None, or
+    None for the whole level when a bucket's band is deeper than the
+    fill's PALLAS_MAX_EBB (those levels take the deep-band kernels through
+    banded_score_results). The counterpart of the JAX package's function
+    of the same name, without its venue, mesh and warm-up branches."""
+    dev = resolve_device(device)
+    n = len(pats)
+    by_key: dict = {}
+    for i in range(n):
+        geo = myers_np.band_geometry(len(pats[i]), len(txts[i]),
+                                     int(cos[i]))
+        by_key.setdefault(score_key(geo, max(mids[i], mids_r[i])),
+                          []).append(i)
+    if any(ebb_p2 > PALLAS_MAX_EBB for _, ebb_p2 in by_key):
+        return None
+    results: list = [None] * n
+    for idxs in by_key.values():
+        pats_il, txts_il, cos_il, fins_il = [], [], [], []
+        for i in idxs:
+            # task j -> lanes 2j (forward) and 2j+1 (reverse)
+            pats_il += [pats[i], pats[i][::-1]]
+            txts_il += [txts[i], txts[i][::-1]]
+            cos_il += [int(cos[i])] * 2
+            fins_il += [int(mids[i]), int(mids_r[i])]
+        batch = prepare_banded_batch(pats_il, txts_il, cos_il, full=False,
+                                     text_finish=fins_il)
+        pll, sl, sr, ok = _hsplit_fused(batch, dev)
+        for j, i in enumerate(idxs):
+            results[i] = ((int(pll[j]), int(sl[j]), int(sr[j]))
+                          if ok[j] else None)
     return results
 
 

@@ -4,10 +4,13 @@ The counterpart of quicked_tpu/aligner/hirschberg.py (`hirschberg_batch`,
 `_splits_np`), with the same worklist: all pairs' subproblems run level
 by level. Base cases (band footprint <= the 16 MB budget,
 bpm_hirschberg.c:63-65) run through the full fill and the on-device
-traceback; split levels run one forward+reverse score batch through the
-score fill, and the midpoints are found on the host by the shared
-`myers_np.hirschberg_split_fast`. Leaf CIGARs are assembled left to
-right by their recursion path.
+traceback. A split level first tries the fused path
+(`batch.hirschberg_level_splits_device`: the fill and the split epilogue
+on the card, four numbers per task read back); a level with a band too
+deep for the fill runs one forward+reverse score batch through the
+deep-band kernels (`batch.banded_score_results`), and its midpoints are
+found on the host by the shared `myers_np.hirschberg_split_fast`. Leaf
+CIGARs are assembled left to right by their recursion path.
 
 Failure semantics follow the reference's shared right-to-left buffer
 (bpm_hirschberg.c:210-243): on QUICKED_FAIL_NON_CONVERGENCE only the
@@ -49,8 +52,7 @@ def hirschberg_batch(texts, patterns, cutoffs, device="cuda"):
     QUICKED_FAIL_NON_CONVERGENCE, ops_str holds the partial right-side
     alignment the reference leaves in its output buffer (maybe empty).
     """
-    from quicked_tpu_torch.aligner.batch import (banded_align_batch,
-                                                 banded_score_results)
+    from quicked_tpu_torch.aligner import batch as ab
 
     dev = resolve_device(device)
     n = len(texts)
@@ -81,7 +83,7 @@ def hirschberg_batch(texts, patterns, cutoffs, device="cuda"):
                 split.append(t)
 
         if base:
-            _, ops = banded_align_batch(
+            _, ops = ab.banded_align_batch(
                 [t[3] for t in base], [t[2] for t in base],
                 [t[4] for t in base], only_score=False, device=dev,
                 raws=([t[6] for t in base], [t[5] for t in base]))
@@ -95,13 +97,18 @@ def hirschberg_batch(texts, patterns, cutoffs, device="cuda"):
             cos = [t[4] for t in split]
             mids = [(len(t[2]) + 1) // 2 for t in split]
             mids_r = [len(t[2]) - m for t, m in zip(split, mids)]
-            # forward and reverse half passes share geometry: one batch
-            both = banded_score_results(
-                pats + [p[::-1] for p in pats],
-                txts + [t[::-1] for t in txts],
-                cos + cos, text_finish=mids + mids_r, device=dev)
-            fwd, rev = both[:len(split)], both[len(split):]
-            for t, mid, sp in zip(split, mids, _splits_np(split, fwd, rev)):
+            splits = ab.hirschberg_level_splits_device(
+                pats, txts, cos, mids, mids_r, device=dev)
+            if splits is None:
+                # forward and reverse half passes share geometry: one
+                # batch through the deep-band kernels
+                both = ab.banded_score_results(
+                    pats + [p[::-1] for p in pats],
+                    txts + [t[::-1] for t in txts],
+                    cos + cos, text_finish=mids + mids_r, device=dev)
+                fwd, rev = both[:len(split)], both[len(split):]
+                splits = _splits_np(split, fwd, rev)
+            for t, mid, sp in zip(split, mids, splits):
                 i, path, text, pattern, cutoff, traw, praw = t
                 if sp is None:
                     status[i] = QuickedStatus.QUICKED_FAIL_NON_CONVERGENCE

@@ -77,6 +77,17 @@ def stage_banded(batch: BandedBatch, device="cuda") -> StagedBanded:
         full=bool(batch.full))
 
 
+def select_lanes(st: StagedBanded, idx: torch.Tensor) -> StagedBanded:
+    """The staged batch restricted to lanes `idx` (a 1-D index tensor on
+    the batch's device)."""
+    return StagedBanded(
+        peq=st.peq[:, :, idx].contiguous(), lm=st.lm[:, idx].contiguous(),
+        text=st.text[:, idx].contiguous(),
+        init_scores=st.init_scores[:, idx].contiguous(),
+        lanes={k: v[idx].contiguous() for k, v in st.lanes.items()},
+        B=len(idx), EBB=st.EBB, NB=st.NB, full=st.full)
+
+
 def advance_block(eq, mask, pv, mv, phin, mhin):
     """Myers advance-block on int64 words (ops/u64.py:advance_block64
     without the u32 halves). Only left shifts and bit tests are used, so
@@ -93,6 +104,43 @@ def advance_block(eq, mask, pv, mv, phin, mhin):
     return mh | ~(xv | ph), ph & xv, phout, mhout
 
 
+def maintain(st: StagedBanded, nb: int, pv, mv, scw, first, last,
+             c_first1, c_last1, c_last):
+    """Band cut/shift after the 64-column block nb (banded_jax.py
+    _maintenance), then the scores-window roll. The c_* are the window
+    rows first+1, last-1 and last after the block's sweep. Returns
+    (pv, mv, scw, first, last, the dropped window row 0)."""
+    L = {k: v.long() for k, v in st.lanes.items()}
+    cutoff, prolog, nbr = L["cutoff"], L["prolog"], L["nbr"]
+    finish_v, tfinish = L["finish_v"], L["tfinish"]
+    EBB = st.EBB
+    rows = torch.arange(EBB, device=pv.device)[:, None]
+    w_idx = torch.arange(EBB + 1, device=pv.device)[:, None]
+    do_shift = (nb + 1) * W <= tfinish
+    cut_lower = (first + 2 < last) & (finish_v > W * (first + 1)) & \
+        ((c_first1 + (finish_v - W * (first + 1))) > cutoff)
+    inc = do_shift & cut_lower & (nb >= prolog)
+    dec = do_shift & ~cut_lower & (nb < prolog)
+    first = first + inc.long() - dec.long()
+    m_shift = do_shift[None] & (rows >= first[None]) & (rows < last[None])
+    m_top = do_shift[None] & (rows == last[None])
+    pv = torch.where(m_top, -1, torch.where(
+        m_shift, torch.roll(pv, -1, 0), pv))
+    mv = torch.where(m_top, 0, torch.where(
+        m_shift, torch.roll(mv, -1, 0), mv))
+    m_write = do_shift[None] & (w_idx == (last + 1)[None])
+    scw = torch.where(m_write, (c_last + W)[None], scw)
+    cut_higher = (first + 2 < last) & (W * (last - 1) > finish_v) & \
+        ((c_last1 + (W * (last - 1) - finish_v)) > cutoff)
+    clamp_at = nbr - 1 if st.full else nbr
+    clamp = (nb - prolog + last) >= clamp_at
+    last = last - (do_shift & (cut_higher | clamp)).long()
+    row0 = scw[0].clone()
+    new_row = (nb + 1 + EBB - prolog + 1) * W
+    scw = torch.cat([scw[1:], new_row[None]], dim=0)
+    return pv, mv, scw, first, last, row0
+
+
 def banded_scan_torch(st: StagedBanded) -> dict:
     """Plain PyTorch version of the fill: banded_jax.banded_scan_impl and
     _maintenance op for op, vectorized over lanes. The edge scores for
@@ -101,18 +149,15 @@ def banded_scan_torch(st: StagedBanded) -> dict:
     does (both agree; see the note at banded_jax.py:116-122)."""
     B, EBB, NB, full = st.B, st.EBB, st.NB, st.full
     dev = st.peq.device
-    L = {k: v.long() for k, v in st.lanes.items()}
-    cutoff, prolog, nbr = L["cutoff"], L["prolog"], L["nbr"]
-    finish_v, tfinish = L["finish_v"], L["tfinish"]
-    first, last = L["first0"].clone(), L["last0"].clone()
+    tfinish = st.lanes["tfinish"].long()
+    first = st.lanes["first0"].long().clone()
+    last = st.lanes["last0"].long().clone()
     pv = torch.full((EBB, B), -1, dtype=torch.int64, device=dev)
     mv = torch.zeros((EBB, B), dtype=torch.int64, device=dev)
     scw = st.init_scores.long().clone()
     text = st.text.long()
     ones = torch.ones(B, dtype=torch.int64, device=dev)
     zeros = torch.zeros(B, dtype=torch.int64, device=dev)
-    rows = torch.arange(EBB, device=dev)[:, None]
-    w_idx = torch.arange(EBB + 1, device=dev)[:, None]
     if full:
         mat_pv = torch.empty((NB * W, EBB, B), dtype=torch.int64, device=dev)
         mat_mv = torch.empty_like(mat_pv)
@@ -148,30 +193,9 @@ def banded_scan_torch(st: StagedBanded) -> dict:
                 mat_pv[t] = pv
                 mat_mv[t] = mv
 
-        # band cut/shift every 64 columns (_maintenance)
-        do_shift = (nb + 1) * W <= tfinish
-        cut_lower = (first + 2 < last) & (finish_v > W * (first + 1)) & \
-            ((c_first1 + (finish_v - W * (first + 1))) > cutoff)
-        inc = do_shift & cut_lower & (nb >= prolog)
-        dec = do_shift & ~cut_lower & (nb < prolog)
-        first = first + inc.long() - dec.long()
-        m_shift = do_shift[None] & (rows >= first[None]) & (rows < last[None])
-        m_top = do_shift[None] & (rows == last[None])
-        pv = torch.where(m_top, -1, torch.where(
-            m_shift, torch.roll(pv, -1, 0), pv))
-        mv = torch.where(m_top, 0, torch.where(
-            m_shift, torch.roll(mv, -1, 0), mv))
-        m_write = do_shift[None] & (w_idx == (last + 1)[None])
-        scw = torch.where(m_write, (c_last + W)[None], scw)
-        cut_higher = (first + 2 < last) & (W * (last - 1) > finish_v) & \
-            ((c_last1 + (W * (last - 1) - finish_v)) > cutoff)
-        clamp_at = nbr - 1 if full else nbr
-        clamp = (nb - prolog + last) >= clamp_at
-        last = last - (do_shift & (cut_higher | clamp)).long()
-
-        dropped.append(scw[0].clone())
-        new_row = (nb + 1 + EBB - prolog + 1) * W
-        scw = torch.cat([scw[1:], new_row[None]], dim=0)
+        pv, mv, scw, first, last, row0 = maintain(
+            st, nb, pv, mv, scw, first, last, c_first1, c_last1, c_last)
+        dropped.append(row0)
         if full:
             # the stored 64th column reflects the shifted band
             mat_pv[nb * W + W - 1] = pv
@@ -184,7 +208,10 @@ def banded_scan_torch(st: StagedBanded) -> dict:
     return out
 
 
-def _launch_fill(st: StagedBanded) -> dict:
+def launch_outputs(st: StagedBanded, *extra) -> dict:
+    """The score pass's output tensors for a staged CUDA batch (the full
+    fill's planes too), after checking the batch and `extra` outputs
+    the way every banded kernel takes them."""
     dev = st.peq.device
     B, EBB, NB = st.B, st.EBB, st.NB
 
@@ -199,19 +226,23 @@ def _launch_fill(st: StagedBanded) -> dict:
     if st.full:
         out.update(mat_pv=empty((NB * W, EBB, B), torch.int64),
                    mat_mv=empty((NB * W, EBB, B), torch.int64))
-    lanes = [st.lanes[k] for k in LANE_FIELDS]
-    check_cuda(st.peq, st.lm, st.text, st.init_scores, *lanes,
-               *out.values())
+    check_cuda(st.peq, st.lm, st.text, st.init_scores, *st.lanes.values(),
+               *out.values(), *extra)
     if st.text.dtype != torch.uint8 or st.peq.dtype != torch.int64:
         raise ValueError("staged text must be uint8 and PEQ int64")
+    return out
+
+
+def _launch_fill(st: StagedBanded) -> dict:
+    out = launch_outputs(st)
     ptr = torch.Tensor.data_ptr
     FILL.launch(int(st.full), ptr(st.peq), ptr(st.lm), ptr(st.text),
-                ptr(st.init_scores), *[ptr(x) for x in lanes],
+                ptr(st.init_scores), *[ptr(st.lanes[k]) for k in LANE_FIELDS],
                 ptr(out["scores_by_k"]), ptr(out["pv"]), ptr(out["mv"]),
                 ptr(out["first"]), ptr(out["last"]),
                 ptr(out["mat_pv"]) if st.full else None,
                 ptr(out["mat_mv"]) if st.full else None,
-                B, EBB, NB, stream_ptr(dev))
+                st.B, st.EBB, st.NB, stream_ptr(st.peq.device))
     return out
 
 

@@ -27,11 +27,11 @@ from quicked_tpu_torch.ops.banded_traceback_cuda import (
     bit_at, highest_zero_at_or_below)
 
 W = 64
-# csrc/windowed_score.cu keeps the PEQ window in registers, so the card
-# takes window sizes up to 16; the plain version takes any size
-MAX_WS = 16
+# csrc/windowed_score.cu keeps a window of up to 16 blocks in the thread;
+# a wider one goes to a scratch buffer the wrapper allocates
+MAX_REG_WS = 16
 
-WINDOWED = Kernel("qtt_windowed_score", [P] * 11 + [I] * 7 + [P])
+WINDOWED = Kernel("qtt_windowed_score", [P] * 14 + [I] * 7 + [P])
 
 
 @dataclasses.dataclass
@@ -249,10 +249,8 @@ def windowed_scan_torch(st: StagedWindowed, WS: int, OVL: int,
 
 def _launch_windowed(st: StagedWindowed, WS: int, OVL: int,
                      hew_cells: int):
-    if not 1 <= WS <= MAX_WS:
-        raise ValueError(
-            f"window_size {WS}: the CUDA windowed kernel holds its PEQ "
-            f"window in registers and takes 1..{MAX_WS}")
+    if WS < 1:
+        raise ValueError(f"window_size {WS}: must be at least 1")
     dev = st.peq.device
     KP, _, B = st.peq.shape
     T, P_ = st.text_enc.shape[0], st.pat_raw.shape[0]
@@ -263,11 +261,16 @@ def _launch_windowed(st: StagedWindowed, WS: int, OVL: int,
     mv_before = torch.empty_like(pv_after)
     score = torch.empty((B,), dtype=torch.int32, device=dev)
     hew = torch.empty_like(score)
-    args = (st.peq, st.text_enc, st.text_raw, st.pat_raw, st.plen, st.tlen,
-            st.num_words, pv_after, mv_before, score, hew)
+    args = [st.peq, st.text_enc, st.text_raw, st.pat_raw, st.plen, st.tlen,
+            st.num_words, pv_after, mv_before, score, hew]
+    if WS > MAX_REG_WS:     # the window words of a lane, lane-minor
+        args += [torch.empty((WS * 5, B), dtype=torch.int64, device=dev),
+                 torch.empty((WS, B), dtype=torch.int64, device=dev),
+                 torch.empty((WS, B), dtype=torch.int64, device=dev)]
     check_cuda(*args)
-    WINDOWED.launch(*[x.data_ptr() for x in args], B, KP, T, P_, WS, OVL,
-                    hew_cells, stream_ptr(dev))
+    ptrs = [x.data_ptr() for x in args] + [None] * (14 - len(args))
+    WINDOWED.launch(*ptrs, B, KP, T, P_, WS, OVL, hew_cells,
+                    stream_ptr(dev))
     return score.long(), hew.long()
 
 

@@ -12,7 +12,7 @@ from quicked_tpu import generate
 from quicked_tpu.aligner import hirschberg as jax_hb
 from quicked_tpu.ops import edit_dp, myers_np
 from quicked_tpu.params import QuickedParams, QuickedStatus
-from quicked_tpu_torch.aligner import cascade
+from quicked_tpu_torch.aligner import batch, cascade
 from quicked_tpu_torch.aligner import hirschberg as hb
 
 torch.set_num_threads(1)
@@ -26,7 +26,7 @@ def _shrink_budget(monkeypatch, size):
 
 def test_torch_hirschberg_split_levels(monkeypatch):
     """A 4 KB budget forces real splits: forward and reverse half passes
-    through the score fill, midpoints on the host."""
+    through the score fill and the split epilogue (the fused level)."""
     _shrink_budget(monkeypatch, 4096)
     pairs = list(generate.generate_pairs(3, 400, error=0.1, seed=11)) + \
         list(generate.generate_pairs(2, 600, error=0.12, seed=12))
@@ -75,8 +75,20 @@ def test_torch_hirschberg_partial_on_injected_failure(monkeypatch):
         return real_fast(pv, mv, first, last, sk, rpv, rmv, rfirst,
                          rlast, rsk, prolog, plen, tlen)
 
+    real_fused = batch.hirschberg_level_splits_device
+
+    def injected_fused(pats, txts, cos, mids, mids_r, device="cuda"):
+        # the port's fused split level fails at the same subproblem
+        res = real_fused(pats, txts, cos, mids, mids_r, device=device)
+        if res is None:
+            return None
+        return [None if (len(p), len(t)) == target else r
+                for p, t, r in zip(pats, txts, res)]
+
     monkeypatch.setattr(myers_np, "hirschberg_split", injected)
     monkeypatch.setattr(myers_np, "hirschberg_split_fast", injected_fast)
+    monkeypatch.setattr(batch, "hirschberg_level_splits_device",
+                        injected_fused)
     st_model, ops_model = myers_np.hirschberg(txt, pat, 65)
     got = hb.hirschberg_batch([txt], [pat], [65], device="cpu")
     assert int(st_model) < 0

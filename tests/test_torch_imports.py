@@ -13,8 +13,11 @@ import torch
 from quicked_tpu import generate
 from quicked_tpu.ops.batch_prep import prepare_banded_batch
 from quicked_tpu_torch import api
+from quicked_tpu_torch.ops import banded_cscan_cuda as cc
 from quicked_tpu_torch.ops import banded_cuda as bc
+from quicked_tpu_torch.ops import banded_sysband_cuda as sb
 from quicked_tpu_torch.ops import banded_traceback_cuda as btc
+from quicked_tpu_torch.ops import hirschberg_split_cuda as hs
 from quicked_tpu_torch.ops import windowed_cuda as wc
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -27,7 +30,7 @@ def test_torch_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "'quicked_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 10, names\n"
+        "assert len(names) >= 14, names\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
         "if m.startswith('jax'))\n"
         "print('ok', len(names))\n")
@@ -63,7 +66,8 @@ def test_torch_kernel_wrappers_refuse_cpu_tensors():
 @pytest.mark.cuda
 def test_torch_kernels_match_plain_on_card():
     """Each CUDA kernel against its plain version on the same CUDA
-    inputs, bit-exact. Runs on a machine with a card."""
+    inputs, bit-exact (the systolic pass under its contract). Runs on a
+    machine with a card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
                     "False)")
@@ -94,10 +98,47 @@ def test_torch_kernels_match_plain_on_card():
     for a, b in zip(btc.traceback_records(*args),
                     btc.traceback_records_torch(*args)):
         assert torch.equal(a, b)
-    for ws in (2, 9):
+    for ws in (2, 9, 20):
         stw = wc.stage_windowed(
             wc.prepare_windowed_batch(pats, txts, window_size=ws), "cuda")
         got = wc.windowed_score_staged(stw, ws, 1, 204)
         want = wc.windowed_scan_torch(stw, ws, 1, 204)
         np.testing.assert_array_equal(got[0].cpu(), want[0].cpu())
         np.testing.assert_array_equal(got[1].cpu(), want[1].cpu())
+
+    # deep-band passes: carry-scan (all keys) and systolic (ABORT flags,
+    # then scores/first/last and pv/mv on [first, last] of the others);
+    # cutoffs 108000 and 510000 give the systolic kernel's 4- and
+    # 16-rows-per-thread windows and the carry-scan kernel's 4- and
+    # 16-blocks-per-thread stripes
+    for n, cutoff in ((8, 150), (2, 108_000), (2, 510_000)):
+        st = bc.stage_banded(prepare_banded_batch(
+            pats[:n], txts[:n], [cutoff] * n, full=False), "cuda")
+        kern, plain = cc.cscan_staged(st), cc.banded_cscan_torch(st)
+        for k in plain:
+            assert torch.equal(kern[k], plain[k]), (cutoff, k)
+        (kern, k_abort), (plain, p_abort) = (sb.sysband_raw(st),
+                                             sb.banded_sysband_torch(st))
+        assert torch.equal(k_abort, p_abort)
+        for j in (~p_abort).nonzero()[:, 0].tolist():
+            for k in ("scores_by_k", "first", "last"):
+                assert torch.equal(kern[k][..., j], plain[k][..., j]), k
+            lo = max(int(plain["first"][j]), 0)
+            hi = min(int(plain["last"][j]) + 1, st.EBB)
+            for k in ("pv", "mv"):
+                assert torch.equal(kern[k][lo:hi, j],
+                                   plain[k][lo:hi, j]), (cutoff, k)
+
+    # split epilogue over an interleaved forward/reverse level batch
+    il = [(s, s[::-1]) for s in pats], [(s, s[::-1]) for s in txts]
+    b = prepare_banded_batch(
+        [x for pr in il[0] for x in pr], [x for pr in il[1] for x in pr],
+        [100] * 16, full=False,
+        text_finish=[m for t in txts for m in ((len(t) + 1) // 2,
+                                               len(t) - (len(t) + 1) // 2)])
+    out = bc.fill_staged(bc.stage_banded(b, "cuda"))
+    task = [torch.tensor(a[0::2], dtype=torch.int32, device="cuda")
+            for a in (b.prolog, b.plen, b.tlen)]
+    for a, b_ in zip(hs.hirschberg_split(out, *task),
+                     hs.hirschberg_split_torch(out, *task)):
+        assert torch.equal(a, b_)

@@ -88,9 +88,30 @@ def test_torch_windowed_short_pairs():
 
 
 def test_torch_windowed_rejects_wide_windows():
-    """The CUDA kernel holds at most 16 window blocks per lane; the
-    wrapper refuses more before it launches anything."""
+    """The CUDA wrapper refuses a window size below 1 before it launches
+    anything. A wide window (ws > 16, held in a scratch buffer on the
+    card) passes that check and stops only at the device check here."""
     tb = wc.prepare_windowed_batch(["ACGT"], ["ACGT"], window_size=17)
     st = wc.stage_windowed(tb, "cpu")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="window_size"):
+        wc._launch_windowed(st, 0, 0, 0)
+    with pytest.raises(ValueError, match="CUDA"):
         wc._launch_windowed(st, 17, 1, 0)
+    assert wc.WINDOWED.launches == 0
+
+
+def test_torch_windowed_ws20_matches_jax():
+    """A window wider than the kernel's register window (ws 20): the
+    cascade's bucketed windowed bound equals the JAX package's."""
+    from quicked_tpu.aligner import cascade as jax_cascade
+    from quicked_tpu_torch.aligner import cascade
+
+    pairs = _pairs(2, 300, 0.1, 21) + _pairs(1, 900, 0.15, 22,
+                                             indels_num=1,
+                                             indels_length=80)
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    want = jax_cascade.windowed_score_batch(pats, txts, 40, 20, 1)
+    got = cascade.windowed_score_batch(pats, txts, 40, 20, 1, device="cpu")
+    np.testing.assert_array_equal(np.asarray(want[0]), got[0])
+    np.testing.assert_array_equal(np.asarray(want[1]), got[1])

@@ -8,8 +8,10 @@ Run from the repository root. It builds the port's CUDA kernels from
 `quicked_tpu_torch/csrc/`, then:
 
   phase 1  names the card (nvidia-smi name and power limit), times the
-           kernel build and the build (or load) of the shared host C
-           library the oracle and the record expansion use;
+           kernel build and prints the fill kernel's register report
+           (`nvcc -Xptxas -v`; any spill fails), and builds (or loads)
+           the port's host C library, the oracle and the record
+           expansion;
   phase 2  runs each kernel and its plain PyTorch version on the same
            inputs and requires bit-exact agreement (tolerance 0: every
            output is an integer; the systolic pass under its contract,
@@ -27,12 +29,19 @@ Run from the repository root. It builds the port's CUDA kernels from
            check: the systolic and carry-scan passes against the fill
            kernel on the long-read phase's first Hirschberg level (its
            deep half-pass bucket), and against their plain versions on
-           two of its lanes; and the split epilogue on the fused levels
-           of a long-read run; kernel times by CUDA events;
+           two of its lanes; the fill at each of its stripe widths (1, 2,
+           4 band blocks per thread) and past 128 blocks (several warps
+           per pair), score, full and at text-finish midpoints; and, at
+           the shapes one long-read run hands the kernels, the split
+           epilogue on each fused level, the fill on the smallest fused
+           level and on the first stage-4 base-case chunk (the plain
+           versions on a host copy of one or two lanes); kernel times by
+           CUDA events, and the fill's times at every fused level, that
+           chunk and the 10 kbp run's largest full-fill chunk;
   phase 3  aligns N pairs x L bp at 10% error (half of them with four
            large indels) through `api.BatchAligner(QuickedParams())` on
            the card, requires every status, score and CIGAR to equal the
-           shared host C cascade (`quicked_tpu.native.quicked_batch`),
+           host C cascade (`quicked_tpu_torch.native.quicked_batch`),
            and requires the fill, traceback and windowed kernels to have
            been launched by that run;
   phase 5  the long-read path: --long-pairs pairs x --long-length bp the
@@ -46,8 +55,10 @@ Run from the repository root. It builds the port's CUDA kernels from
            `torch.profiler` and prints the device time of each kernel and
            copy and the card's busy share of the wall.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Any failure exits non-zero
+The line before the last is a JSON object with one entry per kernel,
+with its bound: the larger of the bytes its function must move over
+3.35 TB/s and its operations over the card's int32 rate (Myers advances
+at OPS_PER_ADVANCE each); the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without that line. No CUDA card, or no repository around the script,
 also exits non-zero.
 """
@@ -75,6 +86,17 @@ WIDE = {
     "wide_m16": (2_000, 0, 510_000, 4096),         # EBB ~7970
 }
 SEED = 7
+# the fill's stripe widths and past 128 band blocks: cutoff -> the EBB
+# range it must give (S = 1, 2, 4 band blocks per thread; several warps)
+STRIPES = {1500: (17, 32), 3000: (33, 64), 7000: (65, 128),
+           12000: (129, 2048)}
+
+# Bounds. H100 SXM: 3.35e12 B/s of device memory; 132 SMs x 64 int32
+# lanes x 1.98 GHz = 1.67e13 int32 operations/s. A 64-row Myers advance
+# on 64-bit words is about 30 int32 operations.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+OPS_PER_ADVANCE = 30
 
 
 # the TPU kernel (or XLA program) each CUDA kernel replaces
@@ -113,6 +135,52 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
+def bound(nbytes=0, ops=0):
+    """(bound_ms, bound_by): the least time for a call that moves
+    `nbytes` bytes and does `ops` int32 operations, and which sets it."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / INT32_OPS_PER_S * 1e3
+    return (o_ms, "operations") if o_ms >= b_ms else (b_ms, "bytes")
+
+
+def banded_bound(st):
+    """Bound of a banded pass over the staged batch `st` (fill, carry-scan
+    or systolic): one Myers advance per live block-column, as the fill
+    counts them (`fill_advances`); bytes: the staged inputs read once,
+    the outputs written once (the planes too for a full batch)."""
+    from quicked_tpu_torch.ops import banded_cuda as bc
+
+    B, EBB, NB = st.B, st.EBB, st.NB
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 (st.peq, st.lm, st.text, st.init_scores,
+                  *st.lanes.values()))
+    nbytes += B * ((NB + EBB + 1) * 4 + EBB * 16 + 8)
+    if st.full:
+        nbytes += NB * 64 * EBB * B * 16
+    return bound(nbytes, bc.fill_advances(st) * OPS_PER_ADVANCE)
+
+
+def register_check(_build):
+    """Print the fill kernel's register report, one line per
+    instantiation; fail on any spill."""
+    import re
+
+    name = None
+    for line in _build.register_report("banded_fill.cu").splitlines():
+        m = re.search(r"banded_fill_kernelILi(\d+)ELb(\d)ELb(\d)E", line)
+        if "Compiling entry function" in line and m:
+            name = (f"S={m.group(1)} several_warps={m.group(2)} "
+                    f"full={m.group(3)}")
+        elif name and ("Used" in line or "spill" in line):
+            text = line.split(":", 1)[-1].strip()
+            print(f"[phase 1] banded_fill {name}: {text}")
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+            check(not sp or sp.group(1) == sp.group(2) == "0",
+                  f"banded_fill {name} spills: {text}")
+    check(name is not None, "no register report for banded_fill.cu")
+
+
 def max_abs_err(a, b):
     """Largest |a - b| over matching tensors (int64 words compare as
     equal or not: their difference could overflow)."""
@@ -126,7 +194,7 @@ def max_abs_err(a, b):
 
 def phase2(gen, seed, torch):
     """Each kernel against its plain version on the same CUDA inputs."""
-    from quicked_tpu.ops.batch_prep import prepare_banded_batch
+    from quicked_tpu_torch.ops.batch_prep import prepare_banded_batch
     from quicked_tpu_torch.ops import banded_cuda as bc
     from quicked_tpu_torch.ops import banded_traceback_cuda as btc
     from quicked_tpu_torch.ops import windowed_cuda as wc
@@ -183,7 +251,12 @@ def phase2(gen, seed, torch):
     err = compare("traceback", dict(enumerate(kern)), dict(enumerate(plain)))
     ms = cuda_ms(lambda: btc.traceback_records(*args), 5)
     plain_ms = cuda_ms(lambda: btc.traceback_records_torch(*args), 1)
-    res["traceback"] = dict(err=err, ms=ms, plain_ms=plain_ms)
+    # per column and lane: a Pv and an Mv word, two raw characters, one
+    # (run, op) record
+    T, _, B = out["mat_pv"].shape
+    b_ms, b_by = bound(T * B * (8 + 8 + 1 + 1 + 4 + 1))
+    res["traceback"] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by)
     print(f"[phase 2] traceback: T={out['mat_pv'].shape[0]} bit-exact, "
           f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
 
@@ -199,7 +272,16 @@ def phase2(gen, seed, torch):
         ms = cuda_ms(lambda: wc.windowed_score_staged(stw, ws, 1, cells), 5)
         plain_ms = cuda_ms(lambda: wc.windowed_scan_torch(stw, ws, 1, cells),
                            1)
-        res[f"windowed_ws{ws}"] = dict(err=err, ms=ms, plain_ms=plain_ms)
+        # a window advances at most 64*(ws-1) along each sequence, and
+        # fills 64*ws columns of ws blocks
+        windows = sum(-(-min(len(p), len(t)) // (64 * (ws - 1)))
+                      for p, t in pairs)
+        b_ms, b_by = bound(
+            sum(x.numel() * x.element_size() for x in
+                (stw.peq, stw.text_enc, stw.text_raw, stw.pat_raw)),
+            windows * 64 * ws * ws * OPS_PER_ADVANCE)
+        res[f"windowed_ws{ws}"] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                       bound_ms=b_ms, bound_by=b_by)
         print(f"[phase 2] windowed ws={ws}: bit-exact, kernel {ms:.3f} ms, "
               f"plain {plain_ms:.1f} ms")
     return res
@@ -211,10 +293,10 @@ def phase2_deep(gen, torch):
     stage-4 bound the port's stages 1-3 prove for them. The plain
     versions are Python loops of small ops, slower on the card than on
     the host, so they run on a host copy of the same staged tensors."""
-    from quicked_tpu.ops import myers_np
-    from quicked_tpu.ops.batch_prep import prepare_banded_batch
-    from quicked_tpu.params import QuickedParams
-    from quicked_tpu.utils.profiler import PhaseTimers
+    from quicked_tpu_torch.ops import myers_np
+    from quicked_tpu_torch.ops.batch_prep import prepare_banded_batch
+    from quicked_tpu_torch.params import QuickedParams
+    from quicked_tpu_torch.utils.profiler import PhaseTimers
     from quicked_tpu_torch.aligner.batch import bucket_keys
     from quicked_tpu_torch.aligner.cascade import proven_bounds
     from quicked_tpu_torch.ops import banded_cuda as bc
@@ -273,6 +355,58 @@ def phase2_deep(gen, torch):
     return res
 
 
+def fill_plain_check(name, st, b, lanes, torch, reps=3):
+    """The fill kernel on the CUDA batch `st` (staged from `b`) against
+    its plain version on a host copy of lanes `lanes`, every output
+    bit-exact; the kernel's time on the whole batch by CUDA events."""
+    from quicked_tpu_torch.ops import banded_cuda as bc
+
+    idx = torch.tensor(lanes)
+    kern = bc.fill_staged(st)
+    torch.cuda.synchronize()
+    host = bc.select_lanes(bc.stage_banded(b, "cpu"), idx)
+    plain, plain_ms = host_ms(lambda: bc.banded_scan_torch(host))
+    err = max(max_abs_err(kern[k][..., idx.cuda()].cpu(), plain[k])
+              for k in plain)
+    check(err == 0, f"{name}: fill kernel disagrees with plain version")
+    del kern
+    ms = cuda_ms(lambda: bc.fill_staged(st), reps)
+    b_ms, b_by = banded_bound(st)
+    print(f"[phase 2] {name}: B={st.B} EBB={st.EBB} NB={st.NB} "
+          f"full={st.full}: lanes {lanes} bit-exact, kernel {ms:.3f} ms "
+          f"(bound {b_ms:.3f} ms, {b_by}), plain on the host "
+          f"{plain_ms:.1f} ms")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def phase2_stripes(gen, torch):
+    """The fill at each of its stripe widths (1, 2 and 4 band blocks per
+    thread: EBB <= 32, 64, 128) and past 128 blocks (several warps per
+    pair), score and full, and at text-finish midpoints; 6 pairs x 300 bp
+    whose cutoffs set the depth; the plain version on a host copy."""
+    from quicked_tpu_torch.ops import banded_cuda as bc
+    from quicked_tpu_torch.ops.batch_prep import prepare_banded_batch
+
+    pairs = list(gen.generate_pairs(6, 300, error=0.1, indels_num=2,
+                                    indels_length=40, seed=SEED + 60))
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    mids = [(len(t) + 1) // 2 for t in txts]
+    res = {}
+    for cutoff, (lo, hi) in STRIPES.items():
+        for kind, kw in (("score", dict(full=False)),
+                         ("full", dict(full=True)),
+                         ("mid", dict(full=False, text_finish=mids))):
+            b = prepare_banded_batch(pats, txts, [cutoff] * len(pats), **kw)
+            check(lo <= b.EBB <= hi, f"cutoff {cutoff}: EBB {b.EBB} not in "
+                  f"[{lo}, {hi}]")
+            name = f"fill_stripe_{kind}_ebb{b.EBB}"
+            res[name] = fill_plain_check(name, bc.stage_banded(b, "cuda"),
+                                         b, list(range(len(pats))), torch)
+    return res
+
+
 def host_ms(fn):
     """(result, milliseconds) of fn on the host's clock."""
     t0 = time.perf_counter()
@@ -323,10 +457,13 @@ def hsplit_check(name, b, torch):
               for a, b_ in zip(kern[:3], plain[:3]))
     check(err == 0, f"{name}: kernel disagrees with plain version")
     ms = cuda_ms(lambda: hs.hirschberg_split(out, *task), 5)
+    # per task: both lanes' Pv/Mv bands, two score rows, four results
+    b_ms, b_by = bound(st.B // 2 * (2 * st.EBB * 16 + 8 + 16))
     print(f"[phase 2] {name}: {st.B // 2} tasks, EBB={st.EBB} NB={st.NB}, "
-          f"{int(ok.sum())} feasible, bit-exact, kernel {ms:.3f} ms, plain "
-          f"on the host {plain_ms:.1f} ms")
-    return dict(err=err, ms=ms, plain_ms=plain_ms)
+          f"{int(ok.sum())} feasible, bit-exact, kernel {ms:.3f} ms (bound "
+          f"{b_ms:.4f} ms, {b_by}), plain on the host {plain_ms:.1f} ms")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def phase2_deepband(gen, torch):
@@ -336,7 +473,7 @@ def phase2_deepband(gen, torch):
     passes; one 25 kbp pair that recenters the systolic window), the
     split epilogue over an interleaved forward/reverse level batch, and
     the windowed bound at ws 20 and 32 (the scratch window)."""
-    from quicked_tpu.ops.batch_prep import prepare_banded_batch
+    from quicked_tpu_torch.ops.batch_prep import prepare_banded_batch
     from quicked_tpu_torch.ops import banded_cscan_cuda as cc
     from quicked_tpu_torch.ops import banded_cuda as bc
     from quicked_tpu_torch.ops import banded_sysband_cuda as sb
@@ -428,10 +565,10 @@ def level1_batch(pairs, torch):
     passes of every pair over the 16 MB budget, bucketed as
     banded_score_results buckets them; returns the largest bucket the
     route sends to the systolic kernel, as a BandedBatch."""
-    from quicked_tpu.ops import myers_np
-    from quicked_tpu.ops.batch_prep import prepare_banded_batch
-    from quicked_tpu.params import HIRSCHBERG_BUFFER_SIZE, QuickedParams
-    from quicked_tpu.utils.profiler import PhaseTimers
+    from quicked_tpu_torch.ops import myers_np
+    from quicked_tpu_torch.ops.batch_prep import prepare_banded_batch
+    from quicked_tpu_torch.params import HIRSCHBERG_BUFFER_SIZE, QuickedParams
+    from quicked_tpu_torch.utils.profiler import PhaseTimers
     from quicked_tpu_torch.aligner.batch import score_family, score_key
     from quicked_tpu_torch.aligner.cascade import proven_bounds
 
@@ -490,6 +627,9 @@ def deep_plain_check(name, st, b, lanes, torch, cscan_plain=True):
     sys_ms = cuda_ms(lambda: sb.sysband_raw(sel), 3)
     res = {f"sysband_{name}": dict(err=err_sys, ms=sys_ms,
                                    plain_ms=sys_plain_ms)}
+    if sel.EBB <= bc.MAX_FILL_EBB:    # the advances are counted by the fill
+        res[f"sysband_{name}"].update(zip(("bound_ms", "bound_by"),
+                                          banded_bound(sel)))
     msg = (f"[phase 2] {name}, lanes {lanes}: sysband (aborts "
            f"{int(p_abort.sum())}) equal to its plain version, kernel "
            f"{sys_ms:.3f} ms, plain on the host {sys_plain_ms:.1f} ms")
@@ -544,29 +684,57 @@ def phase2_fulldepth(long_pairs, torch):
 
 
 def phase2_levels(long_pairs, torch):
-    """The split epilogue at the shapes the long-read phase gives it: one
-    run of that phase records each fused level batch it hands the fill
-    and split kernels; each is run again here, the plain split on a host
-    copy of the fill's outputs."""
-    from quicked_tpu.params import QuickedParams
+    """The split epilogue and the fill at the shapes the long-read phase
+    gives them: one run of that phase records each fused level batch it
+    hands the fill and split kernels, and its first stage-4 base-case
+    chunk (a full fill); each level is run again here, the plain split on
+    a host copy of the fill's outputs; the fill is timed on every level
+    and on the chunk, and held to its plain version on two lanes of the
+    level with the fewest column blocks and on one lane of the chunk."""
     from quicked_tpu_torch.aligner import batch as qb
     from quicked_tpu_torch.api import BatchAligner
+    from quicked_tpu_torch.ops import banded_cuda as bc
+    from quicked_tpu_torch.params import QuickedParams
 
-    seen = []
-    real = qb._hsplit_fused
+    seen, chunks = [], []
+    real_split, real_prep = qb._hsplit_fused, qb.prepare_banded_batch
 
     def recording(batch, dev):
         seen.append(batch)
-        return real(batch, dev)
+        return real_split(batch, dev)
 
-    qb._hsplit_fused = recording
+    def prep(*args, **kw):
+        b = real_prep(*args, **kw)
+        if b.full and not chunks:
+            chunks.append(b)
+        return b
+
+    qb._hsplit_fused, qb.prepare_banded_batch = recording, prep
     try:
         BatchAligner(QuickedParams(), device="cuda").align(long_pairs)
     finally:
-        qb._hsplit_fused = real
+        qb._hsplit_fused, qb.prepare_banded_batch = real_split, real_prep
     check(seen, "the long-read run fused no split level")
-    return {f"hsplit_fused{i}": hsplit_check(f"hsplit_fused{i}", b, torch)
-            for i, b in enumerate(seen, 1)}
+    check(chunks, "the long-read run filled no base case")
+    res = {f"hsplit_fused{i}": hsplit_check(f"hsplit_fused{i}", b, torch)
+           for i, b in enumerate(seen, 1)}
+    small = min(range(len(seen)), key=lambda i: seen[i].NB)
+    for i, b in enumerate(seen, 1):
+        st = bc.stage_banded(b, "cuda")
+        if i - 1 == small:
+            res[f"fill_level{i}"] = fill_plain_check(
+                f"fill_level{i}", st, b, [0, 1], torch)
+        else:
+            ms = cuda_ms(lambda: bc.fill_staged(st), 3)
+            b_ms, b_by = banded_bound(st)
+            res[f"fill_level{i}"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+            print(f"[phase 2] fill_level{i}: B={st.B} EBB={st.EBB} "
+                  f"NB={st.NB}: kernel {ms:.3f} ms (bound {b_ms:.3f} ms, "
+                  f"{b_by})")
+    b = chunks[0]
+    res["fill_basecase"] = fill_plain_check(
+        "fill_basecase", bc.stage_banded(b, "cuda"), b, [0], torch)
+    return res
 
 
 def phase2_wide(gen, torch):
@@ -577,7 +745,7 @@ def phase2_wide(gen, torch):
     and lane 0 against the plain versions on a host copy."""
     import numpy as np
 
-    from quicked_tpu.ops.batch_prep import prepare_banded_batch
+    from quicked_tpu_torch.ops.batch_prep import prepare_banded_batch
     from quicked_tpu_torch.ops import banded_cscan_cuda as cc
     from quicked_tpu_torch.ops import banded_cuda as bc
     from quicked_tpu_torch.ops import banded_sysband_cuda as sb
@@ -612,7 +780,7 @@ def phase2_banded(gen, torch):
     """The carry-scan pass at the shape of phase 5's BANDED score run
     (the same 16 pairs x 30 kbp at bandwidth 15), against its plain
     version on a host copy."""
-    from quicked_tpu.ops.batch_prep import prepare_banded_batch
+    from quicked_tpu_torch.ops.batch_prep import prepare_banded_batch
     from quicked_tpu_torch.ops import banded_cscan_cuda as cc
     from quicked_tpu_torch.ops import banded_cuda as bc
 
@@ -627,10 +795,12 @@ def phase2_banded(gen, torch):
     err = max(max_abs_err(kern[k].cpu(), plain[k]) for k in kern)
     check(err == 0, "cscan_banded: kernel disagrees with plain version")
     ms = cuda_ms(lambda: cc.cscan_staged(st), 5)
+    b_ms, b_by = banded_bound(st)
     print(f"[phase 2] cscan_banded: B={st.B} EBB={st.EBB} NB={st.NB} "
-          f"bit-exact, kernel {ms:.3f} ms, plain on the host "
-          f"{plain_ms:.1f} ms")
-    return dict(cscan_banded=dict(err=err, ms=ms, plain_ms=plain_ms))
+          f"bit-exact, kernel {ms:.3f} ms (bound {b_ms:.3f} ms, {b_by}), "
+          f"plain on the host {plain_ms:.1f} ms")
+    return dict(cscan_banded=dict(err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms, bound_by=b_by))
 
 
 def banded_pairs(gen):
@@ -691,43 +861,58 @@ def report_run(tag, pairs, wall, launches, timers):
 
 
 def phase3(gen, args, torch):
-    """The slice at real size, held against the host C cascade."""
-    from quicked_tpu import native
-    from quicked_tpu.cigar import Cigar
-    from quicked_tpu.ops import myers_np
-    from quicked_tpu.params import QuickedParams
-    from quicked_tpu.utils.profiler import PhaseTimers
+    """The slice at real size, held against the host C cascade; then the
+    fill's time on the run's largest full-fill chunk (recorded as the run
+    prepares it)."""
+    from quicked_tpu_torch import native
+    from quicked_tpu_torch.aligner import batch as qb
     from quicked_tpu_torch.api import BatchAligner
+    from quicked_tpu_torch.ops import banded_cuda as bc
+    from quicked_tpu_torch.params import QuickedParams
+    from quicked_tpu_torch.utils.profiler import PhaseTimers
 
+    check(native.available(), "the host C library is needed as the oracle")
     pairs = make_pairs(gen, args.pairs, args.length, SEED + 10)
     params = QuickedParams()
     timers = PhaseTimers()
     aligner = BatchAligner(params, device="cuda")
-    res, wall, launches, _ = run_counted(
-        lambda: aligner.align(pairs, timers=timers), torch)
+    chunks = []
+    real_prep = qb.prepare_banded_batch
+
+    def prep(*a, **kw):
+        b = real_prep(*a, **kw)
+        if b.full:
+            chunks.append(b)
+        return b
+
+    qb.prepare_banded_batch = prep
+    try:
+        res, wall, launches, _ = run_counted(
+            lambda: aligner.align(pairs, timers=timers), torch)
+    finally:
+        qb.prepare_banded_batch = real_prep
     report_run("phase 3", pairs, wall, launches, timers)
     for name in ("banded_fill", "banded_traceback", "windowed_score"):
         check(launches[name] > 0, f"phase 3 never launched {name}")
 
     wip = 1    # run_quicked returns QUICKED_WIP on success (quicked.c:305)
     check(all(int(s) == wip for s in res.status), "a status is not WIP")
-    if native.available():
-        want, over = host_cascade(pairs, params)
-        for i, (sc, cig) in enumerate(want):
-            check(int(res.score[i]) == sc and res.cigar[i] == cig,
-                  f"pair {i}: port differs from the oracle")
-        print(f"[phase 3] oracle: host C cascade, {len(pairs)} pairs equal "
-              f"({over} over the budget, finished by its Hirschberg)")
-    else:
-        for i in range(0, len(pairs), max(len(pairs) // 32, 1)):
-            _, ops = myers_np.quicked_align(*pairs[i])
-            c = Cigar(operations=ops or "")
-            check(int(res.score[i]) == c.score_edit() and
-                  res.cigar[i] == (c.sprint(True) if ops else None),
-                  f"pair {i}: port differs from myers_np.quicked_align")
-        print("[phase 3] oracle: myers_np.quicked_align on a 32-pair "
-              "subsample (native library unavailable)")
-    return pairs, launches
+    want, over = host_cascade(pairs, params)
+    for i, (sc, cig) in enumerate(want):
+        check(int(res.score[i]) == sc and res.cigar[i] == cig,
+              f"pair {i}: port differs from the oracle")
+    print(f"[phase 3] oracle: host C cascade, {len(pairs)} pairs equal "
+          f"({over} over the budget, finished by its Hirschberg)")
+
+    b = max(chunks, key=lambda c: c.B * c.NB * c.EBB)
+    st = bc.stage_banded(b, "cuda")
+    ms = cuda_ms(lambda: bc.fill_staged(st), 3)
+    b_ms, b_by = banded_bound(st)
+    print(f"[phase 3] fill on the largest of {len(chunks)} full-fill "
+          f"chunks: B={st.B} EBB={st.EBB} NB={st.NB}: kernel {ms:.3f} ms "
+          f"(bound {b_ms:.3f} ms, {b_by})")
+    return pairs, launches, dict(fill_10kbp_chunk=dict(
+        ms=ms, bound_ms=b_ms, bound_by=b_by))
 
 
 def host_cascade(pairs, params):
@@ -736,9 +921,9 @@ def host_cascade(pairs, params):
     over the 16 MB budget (qh_align's QUICKED path), on every host core."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from quicked_tpu import dna, native
-    from quicked_tpu.cigar import Cigar
-    from quicked_tpu.params import HIRSCHBERG_BUFFER_SIZE
+    from quicked_tpu_torch import dna, native
+    from quicked_tpu_torch.cigar import Cigar
+    from quicked_tpu_torch.params import HIRSCHBERG_BUFFER_SIZE
 
     st, sc, rles = native.quicked_batch(
         [p for p, _ in pairs], [t for _, t in pairs],
@@ -772,12 +957,12 @@ def phase5(gen, pairs, torch):
     """The long-read path at real size, held against the host C cascade;
     then BANDED score-only over 16 pairs x 30 kbp (the carry-scan pass)
     against the host C banded kernel."""
-    from quicked_tpu import native
-    from quicked_tpu.ops.banded_native import run_banded_native
-    from quicked_tpu.ops.batch_prep import (extract_final_scores,
+    from quicked_tpu_torch import native
+    from quicked_tpu_torch.native import run_banded_native
+    from quicked_tpu_torch.ops.batch_prep import (extract_final_scores,
                                             prepare_banded_batch)
-    from quicked_tpu.params import QuickedAlgo, QuickedParams
-    from quicked_tpu.utils.profiler import PhaseTimers
+    from quicked_tpu_torch.params import QuickedAlgo, QuickedParams
+    from quicked_tpu_torch.utils.profiler import PhaseTimers
     from quicked_tpu_torch.api import BatchAligner
 
     check(native.available(), "the host C library is needed as the "
@@ -837,7 +1022,7 @@ def phase4(runs, torch):
     copy, and the card's busy share of the wall."""
     from torch.profiler import ProfilerActivity, profile
 
-    from quicked_tpu.params import QuickedParams
+    from quicked_tpu_torch.params import QuickedParams
     from quicked_tpu_torch.api import BatchAligner
 
     aligner = BatchAligner(QuickedParams(), device="cuda")
@@ -879,7 +1064,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
-        from quicked_tpu import generate, native
+        from quicked_tpu_torch import generate, native
         from quicked_tpu_torch import _build
     except ImportError as e:
         print(f"chip_smoke: the repository is not beside this script: {e}",
@@ -903,6 +1088,7 @@ def main(argv=None) -> int:
         _build.load()
         print(f"[phase 1] kernels built and loaded in "
               f"{_build.build_seconds:.1f} s")
+        register_check(_build)
         # the host C library builds at first use; do it here, so that no
         # later phase times its gcc run
         t0 = time.perf_counter()
@@ -913,6 +1099,7 @@ def main(argv=None) -> int:
 
         p2 = phase2(generate, SEED, torch)
         p2.update(phase2_deep(generate, torch))
+        p2.update(phase2_stripes(generate, torch))
         p2.update(phase2_deepband(generate, torch))
         p2.update(phase2_wide(generate, torch))
         p2.update(phase2_banded(generate, torch))
@@ -920,7 +1107,8 @@ def main(argv=None) -> int:
                                 SEED + 30)
         p2.update(phase2_fulldepth(long_pairs, torch))
         p2.update(phase2_levels(long_pairs, torch))
-        pairs, launches = phase3(generate, args, torch)
+        pairs, launches, p3 = phase3(generate, args, torch)
+        p2.update(p3)
         long_launches, banded_launches = phase5(generate, long_pairs, torch)
         phase4([("10 kbp slice", pairs), ("long-read slice", long_pairs)],
                torch)
@@ -932,18 +1120,23 @@ def main(argv=None) -> int:
 
     def row(name, launched, prefixes, timed):
         """The kernel's line: max_abs_err over every comparison whose key
-        starts with one of `prefixes`, times from the `timed` one."""
+        starts with one of `prefixes`, times and bound from the `timed`
+        one. No single PyTorch call computes any of these functions, so
+        library_ms is null."""
         errs = [v["err"] for k, v in p2.items()
                 if k.startswith(prefixes) and "err" in v]
+        t = p2[timed]
         return dict(name=name, route="cuda",
                     source=f"quicked_tpu_torch/csrc/{name}.cu",
                     replaces=REPLACES[name], launches=launched,
-                    max_abs_err=max(errs),
-                    ms=p2[timed]["ms"], plain_ms=p2[timed]["plain_ms"])
+                    max_abs_err=max(errs), ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                    bound_by=t["bound_by"], library_ms=None)
 
+    level = next(k for k, v in p2.items()
+                 if k.startswith("fill_level") and "plain_ms" in v)
     rows = [
-        row("banded_fill", launches["banded_fill"], ("fill_",),
-            "fill_score"),
+        row("banded_fill", launches["banded_fill"], ("fill_",), level),
         row("banded_traceback", launches["banded_traceback"],
             ("traceback",), "traceback"),
         row("windowed_score", launches["windowed_score"], ("windowed_",),

@@ -3,9 +3,10 @@
 The batched QuickEd cascade (windowed bound, banded score, Hirschberg
 under the proven bound) on an NVIDIA H100 through hand-written CUDA
 kernels (`csrc/`), bit-identical to the JAX package `quicked_tpu`, which
-stays the reference. Host-only modules of `quicked_tpu` that load no jax
-(dna, cigar, params, generate, ops.batch_prep, ops.myers_np, native,
-utils.profiler) are shared, not copied.
+stays the reference. The port imports nothing of `quicked_tpu`: it keeps
+its own copies of the host-only modules it needs (dna, cigar, params,
+generate, ops.batch_prep, ops.myers_np, utils.profiler, and the host C
+runtime in native/, which builds into build/quicked_tpu_torch/).
 
 Public surface: `api.BatchAligner`, `api.align_batch`,
 `api.QuickedAligner`, `api.align_pair`. Every entry takes `device`

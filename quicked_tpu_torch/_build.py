@@ -28,12 +28,15 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "quicked_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
 #: seconds the last build (or load of a cached build) took
 build_seconds: float | None = None
+#: source file name -> what `-Xptxas -v` printed for it (registers, shared
+#: memory, spills per kernel), filled when this process built the library
+ptxas_report: dict[str, str] = {}
 
 
 def _sources() -> list[str]:
@@ -74,8 +77,10 @@ def _compile(path: str) -> None:
             [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     errors = []
-    for proc in procs:
+    for src, proc in zip((s for s in _sources() if s.endswith(".cu")),
+                         procs):
         out, _ = proc.communicate()
+        ptxas_report[os.path.basename(src)] = out
         if proc.returncode != 0:
             errors.append(out)
     if errors:
@@ -87,6 +92,22 @@ def _compile(path: str) -> None:
     for obj in objs:
         os.remove(obj)
     os.replace(f"{tmp}.so", path)
+
+
+def register_report(name: str) -> str:
+    """What `nvcc -Xptxas -v` prints for the source `name` in `csrc/`
+    (registers, shared memory and spills per kernel): kept from this
+    process's build, else compiled once more to no output."""
+    if name not in ptxas_report:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", os.devnull,
+             os.path.join(CSRC_DIR, name)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}:\n{proc.stdout}"
+                               f"{proc.stderr}")
+        ptxas_report[name] = proc.stdout + proc.stderr
+    return ptxas_report[name]
 
 
 def load() -> ctypes.CDLL:

@@ -5,8 +5,8 @@ The counterpart of quicked_tpu/aligner/batch.py (`banded_align_batch`,
 `align_batch_full`, `bucket_keys`, `_lane_pad`). Pairs are bucketed by
 band/text geometry and every bucket runs through the port's kernels.
 Score batches take the score-kernel family of the JAX package's device
-route (`score_family`, from its batch.py:540-572): the thread-per-lane
-fill for shallow bands, the systolic kernel for deep ones, the carry-scan
+route (`score_family`, from its batch.py:540-572): the fill for shallow
+bands, the systolic kernel for deep ones, the carry-scan
 kernel for the rest of the deep batches and for tiny ones. Full batches
 take the full fill plus the on-device traceback. A Hirschberg split level
 whose bands are shallow runs the fill and the split epilogue on the card
@@ -22,16 +22,17 @@ import dataclasses
 import numpy as np
 import torch
 
-from quicked_tpu.cigar import Cigar
-from quicked_tpu.ops import myers_np
-from quicked_tpu.ops.batch_prep import extract_final_scores, prepare_banded_batch
-from quicked_tpu.params import QuickedAlgo, QuickedParams, QuickedStatus
+from quicked_tpu_torch.cigar import Cigar
 from quicked_tpu_torch.device import resolve_device
+from quicked_tpu_torch.ops import myers_np
 from quicked_tpu_torch.ops.banded_cscan_cuda import cscan_staged
 from quicked_tpu_torch.ops.banded_cuda import fill_staged, stage_banded
 from quicked_tpu_torch.ops.banded_sysband_cuda import sysband_staged
 from quicked_tpu_torch.ops.banded_traceback_cuda import traceback_ops
+from quicked_tpu_torch.ops.batch_prep import (extract_final_scores,
+                                              prepare_banded_batch)
 from quicked_tpu_torch.ops.hirschberg_split_cuda import hirschberg_split
+from quicked_tpu_torch.params import QuickedAlgo, QuickedParams, QuickedStatus
 
 W = 64
 
@@ -40,7 +41,7 @@ W = 64
 FULL_FILL_BYTES_BUDGET = 1 << 30
 
 # The score-kernel route's bounds, the JAX package's own
-# (quicked_tpu/aligner/batch.py): the thread-per-lane fill up to
+# (quicked_tpu/aligner/batch.py): the fill up to
 # PALLAS_MAX_EBB band blocks; the carry-scan kernel for tiny batches of
 # deep-ish bands and for the deep batches the systolic kernel does not
 # take; the systolic kernel for SYSBAND_MIN_EBB..SYSBAND_MAX_EBB.
@@ -319,7 +320,7 @@ def align_batch_full(pairs, params: QuickedParams | None = None,
     algo = params.algo
     if not params.use_kernels:
         # the exact numpy semantic model, per pair
-        from quicked_tpu.api import _align_one_np
+        from quicked_tpu_torch.api import _align_one_np
         for i in live:
             p, t = pairs[i]
             st, s, c = _align_one_np(p, t, params)

@@ -21,13 +21,13 @@ import dataclasses
 
 import numpy as np
 
-from quicked_tpu.cigar import Cigar
-from quicked_tpu.params import QuickedParams, QuickedStatus
-from quicked_tpu.utils.profiler import PhaseTimers
 from quicked_tpu_torch.aligner.batch import _next_pow2, banded_align_batch
+from quicked_tpu_torch.cigar import Cigar
 from quicked_tpu_torch.device import resolve_device
 from quicked_tpu_torch.ops.windowed_cuda import (prepare_windowed_batch,
                                                  run_windowed_score)
+from quicked_tpu_torch.params import QuickedParams, QuickedStatus
+from quicked_tpu_torch.utils.profiler import PhaseTimers
 
 W = 64
 

@@ -9,7 +9,7 @@ traceback. A split level first tries the fused path
 on the card, four numbers per task read back); a level with a band too
 deep for the fill runs one forward+reverse score batch through the
 deep-band kernels (`batch.banded_score_results`), and its midpoints are
-found on the host by the shared `myers_np.hirschberg_split_fast`. Leaf
+found on the host by `myers_np.hirschberg_split_fast`. Leaf
 CIGARs are assembled left to right by their recursion path.
 
 Failure semantics follow the reference's shared right-to-left buffer
@@ -21,9 +21,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from quicked_tpu.ops import myers_np
-from quicked_tpu.params import HIRSCHBERG_BUFFER_SIZE, QuickedStatus
+from quicked_tpu_torch import dna
 from quicked_tpu_torch.device import resolve_device
+from quicked_tpu_torch.ops import myers_np
+from quicked_tpu_torch.params import HIRSCHBERG_BUFFER_SIZE, QuickedStatus
 
 
 def _splits_np(split, fwd, rev):
@@ -41,7 +42,6 @@ def _enc_raw(s):
     if isinstance(s, np.ndarray):
         e = np.asarray(s, np.uint8)
         return e, e.tobytes()
-    from quicked_tpu import dna
     return dna.encode(s), s.encode("ascii", "replace")
 
 

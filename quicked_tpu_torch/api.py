@@ -10,14 +10,71 @@ runs their plain PyTorch versions.
 
 from __future__ import annotations
 
-from quicked_tpu.params import (
+from quicked_tpu_torch.aligner.batch import BatchResult, align_batch_full
+from quicked_tpu_torch.cigar import Cigar
+from quicked_tpu_torch.ops import myers_np
+from quicked_tpu_torch.params import (
     QuickedAlgo,
     QuickedException,
     QuickedParams,
     QuickedStatus,
     check_error,
 )
-from quicked_tpu_torch.aligner.batch import BatchResult, align_batch_full
+
+
+def _align_one_np(pattern: str, text: str, params: QuickedParams):
+    """Single-pair alignment through the exact numpy semantic model (a
+    copy of quicked_tpu/api.py:_align_one_np; the `use_kernels=False`
+    route). Returns (status, score, cigar_str or None).
+    """
+    plen, tlen = len(pattern), len(text)
+    if plen == 0 or tlen == 0:
+        return QuickedStatus.QUICKED_EMPTY_SEQUENCE, -1, None
+    max_len = max(plen, tlen)
+    algo = params.algo
+    if algo == QuickedAlgo.BANDED:
+        cutoff = max_len * params.bandwidth // 100
+        score, ops = myers_np.banded_align(pattern, text, cutoff,
+                                           only_score=params.only_score)
+        status = QuickedStatus.QUICKED_WIP
+    elif algo == QuickedAlgo.WINDOWED:
+        score, ops, _ = myers_np.windowed_compute(
+            pattern, text, 0, params.window_size, params.overlap_size,
+            score_only=params.only_score)
+        status = QuickedStatus.QUICKED_WIP
+    elif algo == QuickedAlgo.HIRSCHBERG:
+        cutoff = max_len * params.bandwidth // 100
+        status, ops = myers_np.hirschberg(text, pattern, cutoff)
+        score = None
+    elif algo == QuickedAlgo.QUICKED:
+        status, ops = myers_np.quicked_align(
+            pattern, text, bandwidth=params.bandwidth,
+            window_size=params.window_size, overlap_size=params.overlap_size,
+            hew_threshold=params.hew_threshold,
+            hew_percentage=params.hew_percentage)
+        # run_quicked ignores the Hirschberg status and returns WIP
+        # (quicked.c:290-305); the partial CIGAR is extracted as usual
+        status = QuickedStatus.QUICKED_WIP
+        score = None
+    else:
+        return QuickedStatus.QUICKED_UNKNOWN_ALGO, -1, None
+
+    if check_error(status):
+        # extract_results still runs on failure (quicked.c:154-157,
+        # run_hirschberg): report the partial right-side CIGAR and its
+        # score alongside the error status
+        cigar = Cigar(operations=ops or "")
+        return status, cigar.score_edit(), (cigar.sprint(True) if ops
+                                            else None)
+    # extract_results semantics (quicked.c:34-56): only_score keeps the
+    # cigar NULL for EVERY algorithm (the score is the precomputed
+    # cigar->score, == the ops' edit score when ops were computed).
+    if params.only_score:
+        if ops is None:
+            return status, score, None
+        return status, Cigar(operations=ops).score_edit(), None
+    cigar = Cigar(operations=ops or "")
+    return status, cigar.score_edit(), cigar.sprint(True) if ops else None
 
 
 def align_batch(pairs, params: QuickedParams | None = None,

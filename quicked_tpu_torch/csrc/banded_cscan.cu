@@ -41,26 +41,13 @@
 
 namespace {
 
+using qtt::apply;
+using qtt::compose;
+using qtt::M_ST;
+using qtt::mk;
+using qtt::out_state;
+using qtt::P_ST;
 using qtt::W;
-constexpr int P_ST = 0, Z_ST = 1, M_ST = 2;
-
-// A carry map in one int: bits 0-1 the image of P and Z, bits 2-3 the
-// image of M.
-__device__ __forceinline__ int mk(int a, int b) { return a | (b << 2); }
-__device__ __forceinline__ int img_a(int f) { return f & 3; }
-__device__ __forceinline__ int img_b(int f) { return f >> 2; }
-// f after g
-__device__ __forceinline__ int compose(int f, int g) {
-  return mk(img_a(g) == M_ST ? img_b(f) : img_a(f),
-            img_b(g) == M_ST ? img_b(f) : img_a(f));
-}
-// the state f sends s to
-__device__ __forceinline__ int apply(int f, int s) {
-  return s == M_ST ? img_b(f) : img_a(f);
-}
-__device__ __forceinline__ int out_state(uint32_t ph, uint32_t mh) {
-  return ph ? P_ST : (mh ? M_ST : Z_ST);
-}
 
 template <int S>
 __global__ void __launch_bounds__(1024) banded_cscan_kernel(

@@ -33,6 +33,31 @@ __device__ __forceinline__ void advance_block(uint64_t eq, uint64_t mask,
   mh_c = mhout;
 }
 
+// Carry maps (banded_cscan.cu, banded_fill.cu). The carry entering a band
+// block is P (PHin=1), Z (none) or M (MHin=1); a block's carry-out as a
+// function of its carry-in is a map (a, b) = (out for P or Z, out for M):
+// P and Z give the same carry-out. Maps compose associatively, so the
+// chain through a column's blocks is a prefix composition.
+constexpr int P_ST = 0, Z_ST = 1, M_ST = 2;
+
+// A carry map in one int: bits 0-1 the image of P and Z, bits 2-3 the
+// image of M.
+__device__ __forceinline__ int mk(int a, int b) { return a | (b << 2); }
+__device__ __forceinline__ int img_a(int f) { return f & 3; }
+__device__ __forceinline__ int img_b(int f) { return f >> 2; }
+// f after g
+__device__ __forceinline__ int compose(int f, int g) {
+  return mk(img_a(g) == M_ST ? img_b(f) : img_a(f),
+            img_b(g) == M_ST ? img_b(f) : img_a(f));
+}
+// the state f sends s to
+__device__ __forceinline__ int apply(int f, int s) {
+  return s == M_ST ? img_b(f) : img_a(f);
+}
+__device__ __forceinline__ int out_state(uint32_t ph, uint32_t mh) {
+  return ph ? P_ST : (mh ? M_ST : Z_ST);
+}
+
 // Bits 0..k of a word, k in [0, 63].
 __device__ __forceinline__ uint64_t mask_le(int k) {
   return k >= 63 ? ONES : ((2ull << k) - 1ull);

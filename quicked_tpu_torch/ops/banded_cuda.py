@@ -4,11 +4,13 @@ The counterpart of quicked_tpu/ops/banded_pallas.py (the Pallas TPU
 kernel `_kernel` through `_pallas_banded`, `stage_batch`,
 `collect_outputs`) and of its XLA twin banded_jax.py
 (`banded_scan_impl`, `_maintenance`). The CUDA kernel is
-`csrc/banded_fill.cu`; `banded_scan_torch` below is the plain PyTorch
-version, a line-for-line port of the XLA scan.
+`csrc/banded_fill.cu` (one warp per pair, the band's carry chain
+resolved by a carry-map scan; several warps per pair past 128 band
+blocks, up to MAX_FILL_EBB); `banded_scan_torch` below is the plain
+PyTorch version, a line-for-line port of the XLA scan.
 
 Layout: lanes last, as in the JAX package. Each 64-bit Myers word is one
-int64 element holding the u64 bits (`stage_banded` fuses the shared
+int64 element holding the u64 bits (`stage_banded` fuses the
 BandedBatch's u32 lo/hi planes); `to_host_dict` splits them back into the
 exact dict `banded_jax.run_banded` returns.
 """
@@ -20,15 +22,18 @@ import dataclasses
 import numpy as np
 import torch
 
-from quicked_tpu.ops.batch_prep import BandedBatch
 from quicked_tpu_torch._build import I, P, Kernel
 from quicked_tpu_torch.device import check_cuda, resolve_device, stream_ptr
+from quicked_tpu_torch.ops.batch_prep import BandedBatch
 
 W = 64
 LANE_FIELDS = ("cutoff", "prolog", "nbr", "finish_v", "tfinish", "first0",
                "last0")
 
-FILL = Kernel("qtt_banded_fill", [I] + [P] * 18 + [I, I, I, P])
+# csrc/banded_fill.cu: 16 warps of 32 threads x 4 band blocks per pair
+MAX_FILL_EBB = 2048
+
+FILL = Kernel("qtt_banded_fill", [I] + [P] * 19 + [I, I, I, P])
 
 
 @dataclasses.dataclass
@@ -233,8 +238,15 @@ def launch_outputs(st: StagedBanded, *extra) -> dict:
     return out
 
 
-def _launch_fill(st: StagedBanded) -> dict:
+def _launch_fill(st: StagedBanded, work=None) -> dict:
     out = launch_outputs(st)
+    if work is not None:
+        check_cuda(st.peq, work)
+        if work.dtype != torch.int64 or work.shape != (st.B,):
+            raise ValueError("work must be a (B,) int64 tensor")
+    if st.EBB > MAX_FILL_EBB:
+        raise ValueError(f"EBB {st.EBB}: the fill kernel takes at most "
+                         f"{MAX_FILL_EBB} band blocks")
     ptr = torch.Tensor.data_ptr
     FILL.launch(int(st.full), ptr(st.peq), ptr(st.lm), ptr(st.text),
                 ptr(st.init_scores), *[ptr(st.lanes[k]) for k in LANE_FIELDS],
@@ -242,8 +254,19 @@ def _launch_fill(st: StagedBanded) -> dict:
                 ptr(out["first"]), ptr(out["last"]),
                 ptr(out["mat_pv"]) if st.full else None,
                 ptr(out["mat_mv"]) if st.full else None,
+                ptr(work) if work is not None else None,
                 st.B, st.EBB, st.NB, stream_ptr(st.peq.device))
     return out
+
+
+def fill_advances(st: StagedBanded) -> int:
+    """Myers block advances the batch needs: over every lane, the live
+    band blocks of each 64-column block times its columns before the
+    lane's text finish, as the CUDA fill counts them on a CUDA batch
+    (one extra launch). The bound of the score passes is counted from it."""
+    work = torch.empty((st.B,), dtype=torch.int64, device=st.peq.device)
+    _launch_fill(st, work)
+    return int(work.sum())
 
 
 def fill_staged(st: StagedBanded) -> dict:

@@ -3,8 +3,9 @@
 The counterpart of quicked_tpu/ops/banded_sysband_pallas.py (the Pallas
 TPU kernel `_kernel` through `_pallas_sysband`, `stage_sysband_batch`,
 `collect_sysband`, `run_banded_sysband_pallas`); the step model
-quicked_tpu/ops/banded_sysband_np.py (`run_sysband_pair`, shared
-host-only code) is the bit-exact specification both follow. The CUDA
+quicked_tpu/ops/banded_sysband_np.py (`run_sysband_pair`) is the
+bit-exact specification both follow; `resident_rows` and `total_steps`
+below are copies of its window sizing. The CUDA
 kernel is `csrc/banded_sysband.cu`; `banded_sysband_torch` below is the
 plain PyTorch version.
 
@@ -26,7 +27,6 @@ import math
 
 import torch
 
-from quicked_tpu.ops.banded_sysband_np import resident_rows, total_steps
 from quicked_tpu_torch._build import I, P, Kernel
 from quicked_tpu_torch.device import stream_ptr
 from quicked_tpu_torch.ops.banded_cscan_cuda import cscan_staged
@@ -41,6 +41,22 @@ TOPBIT = -(1 << 63)      # the level mask of rows past the pattern
 # 1024 threads x 16 rows: the route sends at most EBB 8192 (the largest
 # pow2 bucket at or below SYSBAND_MAX_EBB), which needs 8704 rows
 MAX_RESIDENT = 16 * 1024
+
+def resident_rows(ebb: int) -> int:
+    """Resident-window depth in RECENTER-lane rows: EBB+2 band rows +
+    the recenter slab + early-trigger slack (fresh top slots must sit
+    >= RECENTER rows above the band top so the chars cascade warms them
+    before activation). The kernel's window sizing MUST match the
+    model's — the recenter-delayed abort depends on this slack."""
+    return -(-(ebb + 2 + 3 * RECENTER + 4) // RECENTER)
+
+
+def total_steps(nb: int, ns: int) -> int:
+    """Step count covering the last event E2(NB-1) at ~la + CY*(NB-1)
+    + 63 with la up to NB + EBB: the skew adds ~NB + NS on top of the
+    CY*NB columns, plus drain slack."""
+    return CY * nb + nb + ns + 2 * CY
+
 
 SYSBAND = Kernel("qtt_banded_sysband", [P] * 16 + [I] * 5 + [P])
 

@@ -6,7 +6,7 @@ is `csrc/banded_traceback.cu`; `traceback_records_torch` is the plain
 PyTorch version. Both take the (T, EBB, B) int64 Pv/Mv planes that
 `banded_cuda` leaves on the device, so the planes never go to host
 memory, and return one (d_run, op) record per column. The records expand
-on the host through the shared `native.expand_colruns`, or
+on the host through the port's `native.expand_colruns`, or
 `records_to_packed` below.
 
 `prep_raw_frames` and `records_to_packed` are numpy helpers copied from
@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from quicked_tpu_torch import native
 from quicked_tpu_torch._build import I, P, Kernel
 from quicked_tpu_torch.device import check_cuda, stream_ptr
 
@@ -207,7 +208,6 @@ def traceback_ops(mat_pv, mat_mv, praws, traws, plen, tlen, prolog,
     opcs_bt = opcs[:, :n].T.contiguous().cpu().numpy()
     v_f = v_f[:n].cpu().numpy()
     h_f = h_f[:n].cpu().numpy()
-    from quicked_tpu import native
     packed = None
     if EBB * W < (1 << 16) and native.available():
         packed = native.expand_colruns(runs_bt.astype(np.uint16), opcs_bt,

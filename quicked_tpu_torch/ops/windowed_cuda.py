@@ -17,14 +17,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from quicked_tpu import dna
-from quicked_tpu.ops.batch_prep import pack_peq_batch
-from quicked_tpu.ops.myers_np import div_ceil
+from quicked_tpu_torch import dna
 from quicked_tpu_torch._build import I, P, Kernel
 from quicked_tpu_torch.device import check_cuda, resolve_device, stream_ptr
 from quicked_tpu_torch.ops.banded_cuda import advance_block, fuse_u64
 from quicked_tpu_torch.ops.banded_traceback_cuda import (
     bit_at, highest_zero_at_or_below)
+from quicked_tpu_torch.ops.batch_prep import pack_peq_batch
+from quicked_tpu_torch.ops.myers_np import div_ceil
 
 W = 64
 # csrc/windowed_score.cu keeps a window of up to 16 blocks in the thread;

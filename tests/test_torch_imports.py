@@ -1,7 +1,8 @@
-"""The port's boundaries: it loads no jax, it never runs on the CPU
-unless asked to, and (on a machine with a card) each CUDA kernel agrees
-with its plain PyTorch version."""
+"""The port's boundaries: it loads neither jax nor anything of the JAX
+package, it never runs on the CPU unless asked to, and (on a machine with
+a card) each CUDA kernel agrees with its plain PyTorch version."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -10,13 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from quicked_tpu import generate
-from quicked_tpu.ops.batch_prep import prepare_banded_batch
-from quicked_tpu_torch import api
+from quicked_tpu_torch import api, generate
 from quicked_tpu_torch.ops import banded_cscan_cuda as cc
 from quicked_tpu_torch.ops import banded_cuda as bc
 from quicked_tpu_torch.ops import banded_sysband_cuda as sb
 from quicked_tpu_torch.ops import banded_traceback_cuda as btc
+from quicked_tpu_torch.ops.batch_prep import prepare_banded_batch
 from quicked_tpu_torch.ops import hirschberg_split_cuda as hs
 from quicked_tpu_torch.ops import windowed_cuda as wc
 
@@ -30,15 +30,33 @@ def test_torch_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "'quicked_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 14, names\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-        "if m.startswith('jax'))\n"
+        "assert len(names) >= 23, names\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'quicked_tpu' or "
+        "m.startswith('quicked_tpu.'))\n"
+        "assert not bad, bad\n"
         "print('ok', len(names))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_torch_chip_smoke_imports_no_jax_package():
+    """chip_smoke.py, the port's proof on the card, imports nothing of
+    the JAX package or of jax, at any depth of the file."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert names, "chip_smoke.py imports nothing"
+    bad = [n for n in names if n.split(".")[0] in ("quicked_tpu", "jax")]
+    assert not bad, bad
 
 
 def test_torch_cuda_device_raises_without_card(monkeypatch):
@@ -83,6 +101,26 @@ def test_torch_kernels_match_plain_on_card():
         kern, plain = bc.fill_staged(st), bc.banded_scan_torch(st)
         for k in plain:
             assert torch.equal(kern[k], plain[k]), k
+
+    # the fill at each stripe width (EBB <= 32, 64, 128: 1, 2 and 4 band
+    # blocks per thread) and past 128 blocks (several warps per pair),
+    # score, full and stopped at text-finish midpoints; the plain version
+    # on a host copy
+    wide = list(generate.generate_pairs(6, 600, error=0.1, seed=5,
+                                        indels_num=2, indels_length=40))
+    wp = [p for p, _ in wide]
+    wt = [t for _, t in wide]
+    mids = [(len(t) + 1) // 2 for t in wt]
+    for cutoff, lo, hi in ((1500, 17, 32), (3000, 33, 64),
+                           (7000, 65, 128), (12000, 129, 2048)):
+        for kw in (dict(full=False), dict(full=True),
+                   dict(full=False, text_finish=mids)):
+            b = prepare_banded_batch(wp, wt, [cutoff] * len(wp), **kw)
+            assert lo <= b.EBB <= hi, (cutoff, b.EBB)
+            kern = bc.fill_staged(bc.stage_banded(b, "cuda"))
+            plain = bc.banded_scan_torch(bc.stage_banded(b, "cpu"))
+            for k in plain:
+                assert torch.equal(kern[k].cpu(), plain[k]), (cutoff, kw, k)
     st = bc.stage_banded(prepare_banded_batch(pats, txts, cos, full=True),
                          "cuda")
     out = bc.fill_staged(st)

@@ -24,14 +24,17 @@ Run from the repository root. It builds the port's CUDA kernels from
            deepest two of 16 pairs of 10 kbp with four 500 bp indels, full
            fill and traceback under their stage-4 bound, the plain side on
            a host copy; the systolic kernel's 4- and 16-rows-per-thread
-           windows against the carry-scan pass and both plain versions;
+           windows against the carry-scan pass and both plain versions,
+           and the fill (14 warps per pair; four rounds of 2048 blocks)
+           against the carry-scan pass on the same batches;
            the carry-scan pass on phase 5's BANDED batch; the full-depth
            check: the systolic and carry-scan passes against the fill
            kernel on the long-read phase's first Hirschberg level (its
            deep half-pass bucket), and against their plain versions on
            two of its lanes; the fill at each of its stripe widths (1, 2,
-           4 band blocks per thread) and past 128 blocks (several warps
-           per pair), score, full and at text-finish midpoints; and, at
+           4 band blocks per thread), past 128 blocks (2 and 13 warps per
+           pair) and past 2048 (the band walked in rounds), score, full
+           and at text-finish midpoints; and, at
            the shapes one long-read run hands the kernels, the split
            epilogue on each fused level, the fill on the smallest fused
            level and on the first stage-4 base-case chunk (the plain
@@ -89,7 +92,13 @@ SEED = 7
 # the fill's stripe widths and past 128 band blocks: cutoff -> the EBB
 # range it must give (S = 1, 2, 4 band blocks per thread; several warps)
 STRIPES = {1500: (17, 32), 3000: (33, 64), 7000: (65, 128),
-           12000: (129, 2048)}
+           12000: (129, 256)}
+# deeper bands on 2 pairs whose texts are one 64-column block, so that
+# the plain version stays cheap: cutoff -> (EBB range, kinds); 13 warps
+# per pair, then past 2048 blocks (the band walked in two rounds per
+# column)
+DEEP_STRIPES = {100_000: ((1537, 1664), ("score", "full")),
+                150_000: ((2049, 4096), ("score", "full", "mid"))}
 
 # Bounds. H100 SXM: 3.35e12 B/s of device memory; 132 SMs x 64 int32
 # lanes x 1.98 GHz = 1.67e13 int32 operations/s. A 64-row Myers advance
@@ -168,9 +177,12 @@ def register_check(_build):
     name = None
     for line in _build.register_report("banded_fill.cu").splitlines():
         m = re.search(r"banded_fill_kernelILi(\d+)ELb(\d)ELb(\d)E", line)
+        ms = re.search(r"banded_fill_stream_kernelILb(\d)E", line)
         if "Compiling entry function" in line and m:
             name = (f"S={m.group(1)} several_warps={m.group(2)} "
                     f"full={m.group(3)}")
+        elif "Compiling entry function" in line and ms:
+            name = f"streamed full={ms.group(1)}"
         elif name and ("Used" in line or "spill" in line):
             text = line.split(":", 1)[-1].strip()
             print(f"[phase 1] banded_fill {name}: {text}")
@@ -384,26 +396,34 @@ def phase2_stripes(gen, torch):
     """The fill at each of its stripe widths (1, 2 and 4 band blocks per
     thread: EBB <= 32, 64, 128) and past 128 blocks (several warps per
     pair), score and full, and at text-finish midpoints; 6 pairs x 300 bp
-    whose cutoffs set the depth; the plain version on a host copy."""
+    whose cutoffs set the depth; then 13 warps per pair and a band over
+    2048 blocks on 2 pairs of 80 bp patterns and 64 bp texts (the band
+    cut/shift runs after the block's last column); the plain version on a
+    host copy."""
     from quicked_tpu_torch.ops import banded_cuda as bc
     from quicked_tpu_torch.ops.batch_prep import prepare_banded_batch
 
-    pairs = list(gen.generate_pairs(6, 300, error=0.1, indels_num=2,
-                                    indels_length=40, seed=SEED + 60))
-    pats = [p for p, _ in pairs]
-    txts = [t for _, t in pairs]
-    mids = [(len(t) + 1) // 2 for t in txts]
     res = {}
-    for cutoff, (lo, hi) in STRIPES.items():
-        for kind, kw in (("score", dict(full=False)),
-                         ("full", dict(full=True)),
-                         ("mid", dict(full=False, text_finish=mids))):
-            b = prepare_banded_batch(pats, txts, [cutoff] * len(pats), **kw)
+    cases = [(6, 300, None, cutoff, rng, ("score", "full", "mid"))
+             for cutoff, rng in STRIPES.items()]
+    cases += [(2, 80, 64, cutoff, rng, kinds)
+              for cutoff, (rng, kinds) in DEEP_STRIPES.items()]
+    for n, length, cut, cutoff, (lo, hi), kinds in cases:
+        pairs = list(gen.generate_pairs(n, length, error=0.1, indels_num=2,
+                                        indels_length=length // 7,
+                                        seed=SEED + 60))
+        pats = [p for p, _ in pairs]
+        txts = [t[:cut] for _, t in pairs]
+        mids = [(len(t) + 1) // 2 for t in txts]
+        kws = {"score": dict(full=False), "full": dict(full=True),
+               "mid": dict(full=False, text_finish=mids)}
+        for kind in kinds:
+            b = prepare_banded_batch(pats, txts, [cutoff] * n, **kws[kind])
             check(lo <= b.EBB <= hi, f"cutoff {cutoff}: EBB {b.EBB} not in "
                   f"[{lo}, {hi}]")
             name = f"fill_stripe_{kind}_ebb{b.EBB}"
             res[name] = fill_plain_check(name, bc.stage_banded(b, "cuda"),
-                                         b, list(range(len(pats))), torch)
+                                         b, list(range(n)), torch)
     return res
 
 
@@ -627,9 +647,8 @@ def deep_plain_check(name, st, b, lanes, torch, cscan_plain=True):
     sys_ms = cuda_ms(lambda: sb.sysband_raw(sel), 3)
     res = {f"sysband_{name}": dict(err=err_sys, ms=sys_ms,
                                    plain_ms=sys_plain_ms)}
-    if sel.EBB <= bc.MAX_FILL_EBB:    # the advances are counted by the fill
-        res[f"sysband_{name}"].update(zip(("bound_ms", "bound_by"),
-                                          banded_bound(sel)))
+    res[f"sysband_{name}"].update(zip(("bound_ms", "bound_by"),
+                                      banded_bound(sel)))
     msg = (f"[phase 2] {name}, lanes {lanes}: sysband (aborts "
            f"{int(p_abort.sum())}) equal to its plain version, kernel "
            f"{sys_ms:.3f} ms, plain on the host {sys_plain_ms:.1f} ms")
@@ -742,7 +761,10 @@ def phase2_wide(gen, torch):
     (resident windows over 1024 and 4096 rows), which no bucket of the
     long-read phase reaches: two pairs each, the systolic pass against the
     carry-scan pass (its 4- and 16-blocks-per-thread stripes) on the card,
-    and lane 0 against the plain versions on a host copy."""
+    and lane 0 against the plain versions on a host copy. The fill on the
+    same batches (14 warps per pair at EBB ~1690; at EBB ~7970 the band
+    walked in four rounds per column) against the carry-scan pass, every
+    output equal."""
     import numpy as np
 
     from quicked_tpu_torch.ops.batch_prep import prepare_banded_batch
@@ -764,13 +786,20 @@ def phase2_wide(gen, torch):
         st = bc.stage_banded(b, "cuda")
         k_sys, k_abort = sb.sysband_raw(st)
         k_cs = cc.cscan_staged(st)
+        k_fill = bc.fill_staged(st)
         torch.cuda.synchronize()
         ok = (~k_abort).nonzero()[:, 0].cpu()
         err = band_err(k_sys, k_cs, ok)
         check(err == 0, f"{name}: systolic and carry-scan passes disagree")
+        err_fill = max(max_abs_err(k_fill[k], k_cs[k]) for k in k_cs)
+        check(err_fill == 0, f"{name}: fill and carry-scan passes disagree")
+        del k_fill
+        fill_ms = cuda_ms(lambda: bc.fill_staged(st), 2)
         print(f"[phase 2] {name}: B={st.B} EBB={st.EBB} NB={st.NB} NS={NS}: "
-              f"sysband equal to cscan on {len(ok)} lanes")
+              f"sysband equal to cscan on {len(ok)} lanes, the fill equal "
+              f"to cscan on every lane (fill {fill_ms:.3f} ms)")
         res[f"cscan_vs_sysband_{name}"] = dict(err=err)
+        res[f"fill_{name}"] = dict(err=err_fill, ms=fill_ms)
         res.update(deep_plain_check(name, st, b, [0], torch,
                                     cscan_plain=insert == 0))
     return res

@@ -10,8 +10,10 @@ cascade that `chip_smoke.py` holds the port to (`quicked_batch`,
 `src/quicked_host.c` is a copy of quicked_tpu/native/src/quicked_host.c.
 The shared library is built at first use with the system C compiler into
 `build/quicked_tpu_torch/` at the repository root, named by a hash of the
-source, and published there by an atomic rename; it is never built inside
-the package. `available()` is False where no C compiler is found.
+source, the compiler flags and the host's CPU (the build is tuned with
+`-march=native`, so a library built on another host is never loaded), and
+published there by an atomic rename; it is never built inside the
+package. `available()` is False where no C compiler is found.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 import sys
 import threading
@@ -40,10 +43,33 @@ _i64p = ctypes.POINTER(ctypes.c_int64)
 _u64p = ctypes.POINTER(ctypes.c_uint64)
 
 
+# tried in order: -march=native roughly doubles the SIMD banded kernel;
+# the portable build is for toolchains that reject it
+_FLAG_SETS = (("-O3", "-march=native"), ("-O3",))
+
+
+def _host_cpu() -> str:
+    """The host's CPU model and feature flags, as -march=native sees them."""
+    lines = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                lines.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    return "|".join((platform.machine(), lines.get("model name", ""),
+                     lines.get("flags", "")))
+
+
 def library_path() -> str:
+    h = hashlib.sha256()
     with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libquicked_host_{digest}.so")
+        h.update(f.read())
+    h.update(repr(_FLAG_SETS).encode())
+    h.update(_host_cpu().encode())
+    return os.path.join(BUILD_DIR,
+                        f"libquicked_host_{h.hexdigest()[:16]}.so")
 
 
 def default_threads() -> int:
@@ -55,15 +81,13 @@ def default_threads() -> int:
 
 
 def _build(path: str) -> bool:
-    # -march=native roughly doubles the SIMD banded kernel; fall back to
-    # the portable build on toolchains that reject it. Compile to a
-    # private temp path and publish with an atomic rename: a timed-out cc
-    # or a concurrent builder in another process must never leave a
-    # partial .so at the final path.
+    # Compile to a private temp path and publish with an atomic rename: a
+    # timed-out cc or a concurrent build in another process must never
+    # leave a partial .so at the final path.
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.build{os.getpid()}"
     for cc in ("cc", "gcc", "clang"):
-        for flags in (["-O3", "-march=native"], ["-O3"]):
+        for flags in _FLAG_SETS:
             try:
                 subprocess.run(
                     [cc, *flags, "-shared", "-fPIC", "-pthread", "-o", tmp,

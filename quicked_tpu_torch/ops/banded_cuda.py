@@ -6,8 +6,9 @@ kernel `_kernel` through `_pallas_banded`, `stage_batch`,
 (`banded_scan_impl`, `_maintenance`). The CUDA kernel is
 `csrc/banded_fill.cu` (one warp per pair, the band's carry chain
 resolved by a carry-map scan; several warps per pair past 128 band
-blocks, up to MAX_FILL_EBB); `banded_scan_torch` below is the plain
-PyTorch version, a line-for-line port of the XLA scan.
+blocks, and past 2048 the band walked in rounds from device memory, so
+any depth is taken); `banded_scan_torch` below is the plain PyTorch
+version, a line-for-line port of the XLA scan.
 
 Layout: lanes last, as in the JAX package. Each 64-bit Myers word is one
 int64 element holding the u64 bits (`stage_banded` fuses the
@@ -29,9 +30,6 @@ from quicked_tpu_torch.ops.batch_prep import BandedBatch
 W = 64
 LANE_FIELDS = ("cutoff", "prolog", "nbr", "finish_v", "tfinish", "first0",
                "last0")
-
-# csrc/banded_fill.cu: 16 warps of 32 threads x 4 band blocks per pair
-MAX_FILL_EBB = 2048
 
 FILL = Kernel("qtt_banded_fill", [I] + [P] * 19 + [I, I, I, P])
 
@@ -244,9 +242,6 @@ def _launch_fill(st: StagedBanded, work=None) -> dict:
         check_cuda(st.peq, work)
         if work.dtype != torch.int64 or work.shape != (st.B,):
             raise ValueError("work must be a (B,) int64 tensor")
-    if st.EBB > MAX_FILL_EBB:
-        raise ValueError(f"EBB {st.EBB}: the fill kernel takes at most "
-                         f"{MAX_FILL_EBB} band blocks")
     ptr = torch.Tensor.data_ptr
     FILL.launch(int(st.full), ptr(st.peq), ptr(st.lm), ptr(st.text),
                 ptr(st.init_scores), *[ptr(st.lanes[k]) for k in LANE_FIELDS],

@@ -2,11 +2,13 @@
 .align_batch on the same pairs. Statuses, scores and CIGARs must be
 equal for QUICKED, BANDED and HIRSCHBERG."""
 
+import numpy as np
 import pytest
 import torch
 
 from quicked_tpu import api as jax_api
 from quicked_tpu import generate
+from quicked_tpu.ops import myers_np
 from quicked_tpu.params import QuickedAlgo, QuickedParams, QuickedStatus
 from quicked_tpu.utils.profiler import PhaseTimers
 from quicked_tpu_torch import api
@@ -48,6 +50,26 @@ def test_torch_banded_and_hirschberg(algo, only_score):
     pairs = _pairs(3, 200, 0.1, 11) + _pairs(2, 300, 0.15, 12,
                                              length_diff=1.2)
     _same(pairs, QuickedParams(algo=algo, only_score=only_score))
+
+
+def test_torch_banded_band_past_2048_blocks():
+    """A 131.5 kbp pattern against 64 bp of it: the full fill's band is
+    2056 blocks deep, past what 16 warps hold in registers, so the kernel
+    walks it in rounds; on the CPU its plain version runs. The CIGAR (one
+    long deletion around the text) equals the JAX package's."""
+    rng = np.random.default_rng(5)
+    pattern = "".join(rng.choice(list("ACGT"), 131_500))
+    text = pattern[1000:1064]
+    prm = QuickedParams(algo=QuickedAlgo.BANDED)
+    assert myers_np.band_geometry(
+        len(pattern), len(text),
+        len(pattern) * prm.bandwidth // 100).ebb > 2048
+    pairs = [(pattern, text)]
+    want = jax_api.BatchAligner(prm).align(pairs)
+    got = api.BatchAligner(prm, device="cpu").align(pairs)
+    assert [int(s) for s in got.status] == [int(s) for s in want.status]
+    assert list(got.score) == list(want.score) == [131_436]
+    assert list(got.cigar) == list(want.cigar)
 
 
 def test_torch_quicked_only_score():

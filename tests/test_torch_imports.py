@@ -103,19 +103,25 @@ def test_torch_kernels_match_plain_on_card():
             assert torch.equal(kern[k], plain[k]), k
 
     # the fill at each stripe width (EBB <= 32, 64, 128: 1, 2 and 4 band
-    # blocks per thread) and past 128 blocks (several warps per pair),
-    # score, full and stopped at text-finish midpoints; the plain version
-    # on a host copy
-    wide = list(generate.generate_pairs(6, 600, error=0.1, seed=5,
-                                        indels_num=2, indels_length=40))
-    wp = [p for p, _ in wide]
-    wt = [t for _, t in wide]
-    mids = [(len(t) + 1) // 2 for t in wt]
-    for cutoff, lo, hi in ((1500, 17, 32), (3000, 33, 64),
-                           (7000, 65, 128), (12000, 129, 2048)):
+    # blocks per thread), past 128 blocks (2 and 8 warps per pair) and
+    # past 2048 (the band walked in rounds), score, full and stopped at
+    # text-finish midpoints; the deep bands on texts of one 64-column
+    # block, so that the plain version (on a host copy) stays cheap
+    for n, length, cut, cutoff, lo, hi in ((6, 600, None, 1500, 17, 32),
+                                           (6, 600, None, 3000, 33, 64),
+                                           (6, 600, None, 7000, 65, 128),
+                                           (6, 600, None, 12000, 129, 256),
+                                           (2, 80, 64, 64_000, 897, 1024),
+                                           (2, 80, 64, 140_000, 2049, 4096)):
+        wide = list(generate.generate_pairs(n, length, error=0.1, seed=5,
+                                            indels_num=2,
+                                            indels_length=length // 15))
+        wp = [p for p, _ in wide]
+        wt = [t[:cut] for _, t in wide]
+        mids = [(len(t) + 1) // 2 for t in wt]
         for kw in (dict(full=False), dict(full=True),
                    dict(full=False, text_finish=mids)):
-            b = prepare_banded_batch(wp, wt, [cutoff] * len(wp), **kw)
+            b = prepare_banded_batch(wp, wt, [cutoff] * n, **kw)
             assert lo <= b.EBB <= hi, (cutoff, b.EBB)
             kern = bc.fill_staged(bc.stage_banded(b, "cuda"))
             plain = bc.banded_scan_torch(bc.stage_banded(b, "cpu"))

@@ -8,18 +8,23 @@ Run from the repository root. It builds the port's CUDA kernels from
 `quicked_tpu_torch/csrc/`, then:
 
   phase 1  names the card (nvidia-smi name and power limit), times the
-           kernel build and prints the fill kernel's register report
-           (`nvcc -Xptxas -v`; any spill fails), and builds (or loads)
+           kernel build and prints the register report of the fill,
+           windowed and traceback kernels (`nvcc -Xptxas -v`; any spill
+           fails), and builds (or loads)
            the port's host C library, the oracle and the record
            expansion;
   phase 2  runs each kernel and its plain PyTorch version on the same
-           inputs and requires bit-exact agreement (tolerance 0: every
+           inputs, the plain versions on host copies in worker processes
+           (`PlainPool`) while the card goes on, drained before phase 3,
+           and requires bit-exact agreement (tolerance 0: every
            output is an integer; the systolic pass under its contract,
            pv/mv on [first, last] and its ABORT flags): 64 pairs x 2 kbp
            with large indels on the card (score, Hirschberg-midpoint and
            full fills, the traceback, ws 2 and 9 for the windowed bound);
            8 of those pairs for the carry-scan and systolic passes, the
-           split epilogue and ws 20 and 32, and one pair of 25 kbp for the
+           split epilogue and ws 1 (ovl 0), 14, 15 (the window's
+           shared/scratch cutover), 20 and 33 (past one warp), and one
+           pair of 25 kbp for the
            systolic recentering, the plain side on a host copy; the
            deepest two of 16 pairs of 10 kbp with four 500 bp indels, full
            fill and traceback under their stage-4 bound, the plain side on
@@ -38,9 +43,13 @@ Run from the repository root. It builds the port's CUDA kernels from
            the shapes one long-read run hands the kernels, the split
            epilogue on each fused level, the fill on the smallest fused
            level and on the first stage-4 base-case chunk (the plain
-           versions on a host copy of one or two lanes); kernel times by
-           CUDA events, and the fill's times at every fused level, that
-           chunk and the 10 kbp run's largest full-fill chunk;
+           versions on a host copy of one or two lanes); the windowed
+           kernel on batches of 1, 17, 140, 700 and 4,300 pairs (1 to 32
+           pairs per warp), the traceback on one pair with a 500-row
+           D-run and on random planes at EBB 1, 128 and 7,300 (D-runs past
+           the staged window); kernel times by CUDA events, and the
+           fill's times at every fused level, that chunk and the 10 kbp
+           run's largest full-fill chunk;
   phase 3  aligns N pairs x L bp at 10% error (half of them with four
            large indels) through `api.BatchAligner(QuickedParams())` on
            the card, requires every status, score and CIGAR to equal the
@@ -54,6 +63,13 @@ Run from the repository root. It builds the port's CUDA kernels from
            the 16 MB budget), every kernel of the path launched; then
            BANDED score-only on 16 pairs x 30 kbp (the carry-scan pass)
            against the host C banded kernel;
+  recorded both slices aligned once more, untimed, while `Recorder`
+           keeps what they hand the windowed kernel (stage 1, stage 2
+           forward and reverse) and the traceback (the 10 kbp run's
+           largest chunk, the long-read run's first): every windowed pair
+           against the host C windowed bound (`native.windowed_score`),
+           each batch timed with its bound; each chunk held to the plain
+           version on two lanes of a host copy, timed with its bound;
   phase 4  aligns the phase-3 and the long-read pairs again under
            `torch.profiler` and prints the device time of each kernel and
            copy and the card's busy share of the wall.
@@ -61,8 +77,10 @@ Run from the repository root. It builds the port's CUDA kernels from
 The line before the last is a JSON object with one entry per kernel,
 with its bound: the larger of the bytes its function must move over
 3.35 TB/s and its operations over the card's int32 rate (Myers advances
-at OPS_PER_ADVANCE each); the last line is {"ok": true, "device": {...}}. Any failure exits non-zero
-without that line. No CUDA card, or no repository around the script,
+at OPS_PER_ADVANCE each). `quicked_tpu_torch.kernel_ab` times another
+checkout's windowed and traceback kernels against this one's at the
+recorded shapes. The last line is {"ok": true, "device":
+{...}}. Any failure exits non-zero without that line. No CUDA card, or no repository around the script,
 also exits non-zero.
 """
 
@@ -169,28 +187,41 @@ def banded_bound(st):
     return bound(nbytes, bc.fill_advances(st) * OPS_PER_ADVANCE)
 
 
+# the instantiations of each source's kernels in the `-Xptxas -v` report:
+# mangled-name pattern -> label
+REPORTED = {
+    "banded_fill.cu": (
+        (r"banded_fill_kernelILi(\d+)ELb(\d)ELb(\d)E",
+         "S={0} several_warps={1} full={2}"),
+        (r"banded_fill_stream_kernelILb(\d)E", "streamed full={0}")),
+    "windowed_score.cu": (
+        (r"windowed_score_kernelILb(\d)E", "shared={0}"),),
+    "banded_traceback.cu": ((r"banded_traceback_kernel", "warp per pair"),),
+}
+
+
 def register_check(_build):
-    """Print the fill kernel's register report, one line per
-    instantiation; fail on any spill."""
+    """Print the register report of the fill, windowed and traceback
+    kernels, one line per instantiation; fail on any spill."""
     import re
 
-    name = None
-    for line in _build.register_report("banded_fill.cu").splitlines():
-        m = re.search(r"banded_fill_kernelILi(\d+)ELb(\d)ELb(\d)E", line)
-        ms = re.search(r"banded_fill_stream_kernelILb(\d)E", line)
-        if "Compiling entry function" in line and m:
-            name = (f"S={m.group(1)} several_warps={m.group(2)} "
-                    f"full={m.group(3)}")
-        elif "Compiling entry function" in line and ms:
-            name = f"streamed full={ms.group(1)}"
-        elif name and ("Used" in line or "spill" in line):
-            text = line.split(":", 1)[-1].strip()
-            print(f"[phase 1] banded_fill {name}: {text}")
-            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                           r"loads", line)
-            check(not sp or sp.group(1) == sp.group(2) == "0",
-                  f"banded_fill {name} spills: {text}")
-    check(name is not None, "no register report for banded_fill.cu")
+    for src, kinds in REPORTED.items():
+        name, seen = None, 0
+        for line in _build.register_report(src).splitlines():
+            if "Compiling entry function" in line:
+                name = None
+                for rx, label in kinds:
+                    m = re.search(rx, line)
+                    if m:
+                        name, seen = label.format(*m.groups()), seen + 1
+            elif name and ("Used" in line or "spill" in line):
+                text = line.split(":", 1)[-1].strip()
+                print(f"[phase 1] {src[:-3]} {name}: {text}")
+                sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", line)
+                check(not sp or sp.group(1) == sp.group(2) == "0",
+                      f"{src[:-3]} {name} spills: {text}")
+        check(seen > 0, f"no register report for {src}")
 
 
 def max_abs_err(a, b):
@@ -204,8 +235,81 @@ def max_abs_err(a, b):
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-def phase2(gen, seed, torch):
-    """Each kernel against its plain version on the same CUDA inputs."""
+def _plain_worker_init(root):
+    sys.path.insert(0, root)
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _timed(fn, args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+class PlainPool:
+    """The plain versions (Python loops of small torch ops, minutes in
+    all) on host copies, in worker processes while the main process goes
+    on with the card. `submit` queues fn(*args), a module-level function
+    and host tensors, both pickled to a worker, with a callback that
+    checks its result; `drain` waits for every job queued so far and runs
+    their callbacks, which raise SmokeFailure on a disagreement. The main
+    process drains the pool before it times a slice, so that no worker
+    shares the host with that run."""
+
+    def __init__(self, workers):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.ex = ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_plain_worker_init, initargs=(ROOT,))
+        self.jobs = []
+
+    def submit(self, fn, args, done):
+        self.jobs.append((self.ex.submit(_timed, fn, args), done))
+
+    def drain(self):
+        jobs, self.jobs = self.jobs, []
+        for fut, done in jobs:
+            done(*fut.result())
+
+    def close(self):
+        self.ex.shutdown(wait=True, cancel_futures=True)
+
+
+def plain_check(pool, name, kern, fn, args, entry, compare=None):
+    """Queue the plain version fn(*args) on host tensors; when it returns,
+    hold the kernel's host outputs `kern` (a dict, or a sequence in the
+    plain version's order) to it bit-exact, or by `compare(plain)` (which
+    returns the error), and record err and plain_ms in `entry`."""
+    def done(plain, plain_ms):
+        if compare is not None:
+            err = compare(plain)
+        elif isinstance(plain, dict):
+            err = max(max_abs_err(kern[k], plain[k]) for k in plain)
+        else:
+            err = max(max_abs_err(a, b) for a, b in zip(kern, plain))
+        check(err == 0, f"{name}: kernel disagrees with plain version")
+        entry.update(err=err, plain_ms=plain_ms)
+        print(f"[plain] {name}: bit-exact, plain on the host "
+              f"{plain_ms:.1f} ms")
+    pool.submit(fn, args, done)
+
+
+def host_tensors(x):
+    """A host copy of a tensor, a dict or a sequence of tensors."""
+    if isinstance(x, dict):
+        return {k: v.cpu() for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(v.cpu() for v in x)
+    return x.cpu()
+
+
+def phase2(gen, seed, torch, pool):
+    """Each kernel against its plain version on the same inputs, the
+    plain side on a host copy."""
     from quicked_tpu_torch.ops.batch_prep import prepare_banded_batch
     from quicked_tpu_torch.ops import banded_cuda as bc
     from quicked_tpu_torch.ops import banded_traceback_cuda as btc
@@ -219,11 +323,6 @@ def phase2(gen, seed, torch):
     cos = [max(len(p), len(t)) * 15 // 100 for p, t in pairs]
     res = {}
 
-    def compare(name, kern_out, plain_out):
-        err = max(max_abs_err(kern_out[k], plain_out[k]) for k in kern_out)
-        check(err == 0, f"{name}: kernel disagrees with plain version")
-        return err
-
     # banded fill: score, score stopped at Hirschberg midpoints, full
     cases = {
         "fill_score": dict(full=False),
@@ -233,18 +332,17 @@ def phase2(gen, seed, torch):
     }
     staged = {}
     for name, kw in cases.items():
-        st = bc.stage_banded(prepare_banded_batch(pats, txts, cos, **kw),
-                             "cuda")
+        b = prepare_banded_batch(pats, txts, cos, **kw)
+        st = bc.stage_banded(b, "cuda")
         staged[name] = st
-        kern = bc.fill_staged(st)
-        torch.cuda.synchronize()
-        plain = bc.banded_scan_torch(st)
-        err = compare(name, kern, plain)
+        kern = host_tensors(bc.fill_staged(st))
         ms = cuda_ms(lambda: bc.fill_staged(st), 5)
-        plain_ms = cuda_ms(lambda: bc.banded_scan_torch(st), 1)
-        res[name] = dict(err=err, ms=ms, plain_ms=plain_ms)
+        res[name] = dict(ms=ms)
         print(f"[phase 2] {name}: B={st.B} EBB={st.EBB} NB={st.NB} "
-              f"bit-exact, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
+              f"kernel {ms:.3f} ms")
+        plain_check(pool, name, kern, bc.banded_scan_torch,
+                    (bc.stage_banded(b, "cpu"),), res[name])
+        del kern
 
     # traceback over the full fill's planes
     st = staged["fill_full"]
@@ -258,48 +356,17 @@ def phase2(gen, seed, torch):
                 [len(p) for p in pats]),
             st.lanes["prolog"].new_tensor([len(t) for t in txts]),
             st.lanes["prolog"])
-    kern = btc.traceback_records(*args)
-    plain = btc.traceback_records_torch(*args)
-    err = compare("traceback", dict(enumerate(kern)), dict(enumerate(plain)))
-    ms = cuda_ms(lambda: btc.traceback_records(*args), 5)
-    plain_ms = cuda_ms(lambda: btc.traceback_records_torch(*args), 1)
-    # per column and lane: a Pv and an Mv word, two raw characters, one
-    # (run, op) record
-    T, _, B = out["mat_pv"].shape
-    b_ms, b_by = bound(T * B * (8 + 8 + 1 + 1 + 4 + 1))
-    res["traceback"] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=b_by)
-    print(f"[phase 2] traceback: T={out['mat_pv'].shape[0]} bit-exact, "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
+    res.update(traceback_check("traceback", args, host_tensors(args), torch,
+                               pool, reps=5))
 
     # windowed bound, stage 1 (ws 2) and stage 2 (ws 9) shapes
     for ws in (2, 9):
-        stw = wc.stage_windowed(
-            wc.prepare_windowed_batch(pats, txts, window_size=ws), "cuda")
-        cells = wc.hew_cell_threshold(ws, 1, 40)
-        kern = wc.windowed_score_staged(stw, ws, 1, cells)
-        plain = wc.windowed_scan_torch(stw, ws, 1, cells)
-        err = compare(f"windowed_ws{ws}", dict(enumerate(kern)),
-                      dict(enumerate(plain)))
-        ms = cuda_ms(lambda: wc.windowed_score_staged(stw, ws, 1, cells), 5)
-        plain_ms = cuda_ms(lambda: wc.windowed_scan_torch(stw, ws, 1, cells),
-                           1)
-        # a window advances at most 64*(ws-1) along each sequence, and
-        # fills 64*ws columns of ws blocks
-        windows = sum(-(-min(len(p), len(t)) // (64 * (ws - 1)))
-                      for p, t in pairs)
-        b_ms, b_by = bound(
-            sum(x.numel() * x.element_size() for x in
-                (stw.peq, stw.text_enc, stw.text_raw, stw.pat_raw)),
-            windows * 64 * ws * ws * OPS_PER_ADVANCE)
-        res[f"windowed_ws{ws}"] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                                       bound_ms=b_ms, bound_by=b_by)
-        print(f"[phase 2] windowed ws={ws}: bit-exact, kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.1f} ms")
+        res.update(windowed_check(f"windowed_ws{ws}", pats, txts, ws, 1,
+                                  torch, pool))
     return res
 
 
-def phase2_deep(gen, torch):
+def phase2_deep(gen, torch, pool):
     """Full fill and traceback at the main path's deep full-fill bucket:
     the deepest two of 16 pairs with four 500 bp indels, cut off at the
     stage-4 bound the port's stages 1-3 prove for them. The plain
@@ -330,69 +397,49 @@ def phase2_deep(gen, torch):
 
     batch = prepare_banded_batch(pats, txts, cos, full=True)
     st = bc.stage_banded(batch, "cuda")
-    st_host = bc.stage_banded(batch, "cpu")
     kern = bc.fill_staged(st)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain = bc.banded_scan_torch(st_host)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err = max(max_abs_err(kern[k].cpu(), plain[k]) for k in kern)
-    check(err == 0, "fill_full_deep: kernel disagrees with plain version")
     ms = cuda_ms(lambda: bc.fill_staged(st), 3)
-    res = dict(fill_full_deep=dict(err=err, ms=ms, plain_ms=plain_ms))
+    res = dict(fill_full_deep=dict(ms=ms))
     print(f"[phase 2] fill_full_deep: bounds {cos}, B={st.B} EBB={st.EBB} "
-          f"(bucket {bucket}) NB={st.NB} bit-exact, kernel {ms:.3f} ms, "
-          f"plain on the host {plain_ms:.1f} ms")
+          f"(bucket {bucket}) NB={st.NB}, kernel {ms:.3f} ms")
+    plain_check(pool, "fill_full_deep", host_tensors(kern),
+                bc.banded_scan_torch, (bc.stage_banded(batch, "cpu"),),
+                res["fill_full_deep"])
 
-    T = plain["mat_pv"].shape[0]
+    T = kern["mat_pv"].shape[0]
     praw, traw = btc.prep_raw_frames([p.encode() for p in pats],
                                      [t.encode() for t in txts], T,
                                      max(len(p) for p in pats))
-    host = (plain["mat_pv"], plain["mat_mv"], torch.from_numpy(praw),
-            torch.from_numpy(traw),
-            torch.tensor([len(p) for p in pats], dtype=torch.int32),
-            torch.tensor([len(t) for t in txts], dtype=torch.int32),
-            st_host.lanes["prolog"])
-    dev = (kern["mat_pv"], kern["mat_mv"]) + tuple(x.cuda() for x in host[2:])
-    kern_tb = [x.cpu() for x in btc.traceback_records(*dev)]
-    t0 = time.perf_counter()
-    plain_tb = btc.traceback_records_torch(*host)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err = max(max_abs_err(a, b) for a, b in zip(kern_tb, plain_tb))
-    check(err == 0, "traceback_deep: kernel disagrees with plain version")
-    ms = cuda_ms(lambda: btc.traceback_records(*dev), 3)
-    res["traceback_deep"] = dict(err=err, ms=ms, plain_ms=plain_ms)
-    print(f"[phase 2] traceback_deep: T={T} bit-exact, kernel {ms:.3f} ms, "
-          f"plain on the host {plain_ms:.1f} ms")
+    dev = (kern["mat_pv"], kern["mat_mv"], torch.from_numpy(praw).cuda(),
+           torch.from_numpy(traw).cuda(),
+           st.lanes["prolog"].new_tensor([len(p) for p in pats]),
+           st.lanes["prolog"].new_tensor([len(t) for t in txts]),
+           st.lanes["prolog"])
+    res.update(traceback_check("traceback_deep", dev, host_tensors(dev),
+                               torch, pool))
     return res
 
 
-def fill_plain_check(name, st, b, lanes, torch, reps=3):
+def fill_plain_check(name, st, b, lanes, torch, pool, reps=3):
     """The fill kernel on the CUDA batch `st` (staged from `b`) against
     its plain version on a host copy of lanes `lanes`, every output
     bit-exact; the kernel's time on the whole batch by CUDA events."""
     from quicked_tpu_torch.ops import banded_cuda as bc
 
     idx = torch.tensor(lanes)
-    kern = bc.fill_staged(st)
-    torch.cuda.synchronize()
-    host = bc.select_lanes(bc.stage_banded(b, "cpu"), idx)
-    plain, plain_ms = host_ms(lambda: bc.banded_scan_torch(host))
-    err = max(max_abs_err(kern[k][..., idx.cuda()].cpu(), plain[k])
-              for k in plain)
-    check(err == 0, f"{name}: fill kernel disagrees with plain version")
-    del kern
+    kern = {k: v[..., idx.cuda()].cpu() for k, v in bc.fill_staged(st).items()}
     ms = cuda_ms(lambda: bc.fill_staged(st), reps)
     b_ms, b_by = banded_bound(st)
+    entry = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
     print(f"[phase 2] {name}: B={st.B} EBB={st.EBB} NB={st.NB} "
-          f"full={st.full}: lanes {lanes} bit-exact, kernel {ms:.3f} ms "
-          f"(bound {b_ms:.3f} ms, {b_by}), plain on the host "
-          f"{plain_ms:.1f} ms")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+          f"full={st.full}, lanes {lanes} to the plain version: kernel "
+          f"{ms:.3f} ms (bound {b_ms:.3f} ms, {b_by})")
+    plain_check(pool, name, kern, bc.banded_scan_torch,
+                (bc.select_lanes(bc.stage_banded(b, "cpu"), idx),), entry)
+    return entry
 
 
-def phase2_stripes(gen, torch):
+def phase2_stripes(gen, torch, pool):
     """The fill at each of its stripe widths (1, 2 and 4 band blocks per
     thread: EBB <= 32, 64, 128) and past 128 blocks (several warps per
     pair), score and full, and at text-finish midpoints; 6 pairs x 300 bp
@@ -423,7 +470,7 @@ def phase2_stripes(gen, torch):
                   f"[{lo}, {hi}]")
             name = f"fill_stripe_{kind}_ebb{b.EBB}"
             res[name] = fill_plain_check(name, bc.stage_banded(b, "cuda"),
-                                         b, list(range(n)), torch)
+                                         b, list(range(n)), torch, pool)
     return res
 
 
@@ -486,13 +533,14 @@ def hsplit_check(name, b, torch):
                 bound_by=b_by)
 
 
-def phase2_deepband(gen, torch):
+def phase2_deepband(gen, torch, pool):
     """The long-read path's kernels against their plain versions, which
     run on a host copy of the same staged tensors: carry-scan and
     systolic passes (8 pairs x 2 kbp: a full pass and Hirschberg half
     passes; one 25 kbp pair that recenters the systolic window), the
     split epilogue over an interleaved forward/reverse level batch, and
-    the windowed bound at ws 20 and 32 (the scratch window)."""
+    the windowed bound at WINDOW_SHAPES (the shared/scratch cutover and
+    past one warp)."""
     from quicked_tpu_torch.ops.batch_prep import prepare_banded_batch
     from quicked_tpu_torch.ops import banded_cscan_cuda as cc
     from quicked_tpu_torch.ops import banded_cuda as bc
@@ -515,38 +563,25 @@ def phase2_deepband(gen, torch):
             full=False, text_finish=[(len(t) + 1) // 2 for t in txts]),
     }
     for name, b in batches.items():
-        st, host = bc.stage_banded(b, "cuda"), bc.stage_banded(b, "cpu")
-        kern = cc.cscan_staged(st)
-        torch.cuda.synchronize()
-        plain, plain_ms = host_ms(lambda: cc.banded_cscan_torch(host))
-        err = max(max_abs_err(kern[k].cpu(), plain[k]) for k in kern)
-        check(err == 0, f"cscan_{name}: kernel disagrees with plain version")
+        st = bc.stage_banded(b, "cuda")
+        kern = host_tensors(cc.cscan_staged(st))
         ms = cuda_ms(lambda: cc.cscan_staged(st), 5)
-        res[f"cscan_{name}"] = dict(err=err, ms=ms, plain_ms=plain_ms)
-        print(f"[phase 2] cscan_{name}: B={st.B} EBB={st.EBB} NB={st.NB} "
-              f"bit-exact, kernel {ms:.3f} ms, plain on the host "
-              f"{plain_ms:.1f} ms")
+        res[f"cscan_{name}"] = dict(ms=ms)
+        print(f"[phase 2] cscan_{name}: B={st.B} EBB={st.EBB} NB={st.NB}, "
+              f"kernel {ms:.3f} ms")
+        plain_check(pool, f"cscan_{name}", kern, cc.banded_cscan_torch,
+                    (bc.stage_banded(b, "cpu"),), res[f"cscan_{name}"])
 
     batches["recenter"] = prepare_banded_batch([rp], [rt], [RECENTER_CUTOFF],
                                                full=False)
     for name, b in batches.items():
-        st, host = bc.stage_banded(b, "cuda"), bc.stage_banded(b, "cpu")
-        kern, k_abort = sb.sysband_raw(st)
-        torch.cuda.synchronize()
-        (plain, p_abort), plain_ms = host_ms(
-            lambda: sb.banded_sysband_torch(host))
-        check(torch.equal(k_abort.cpu(), p_abort),
-              f"sysband_{name}: ABORT flags differ")
-        lanes = (~p_abort).nonzero()[:, 0]
-        err = band_err(kern, plain, lanes)
-        check(err == 0, f"sysband_{name}: kernel disagrees with plain "
-              f"version")
+        st = bc.stage_banded(b, "cuda")
         ms = cuda_ms(lambda: sb.sysband_raw(st), 5)
-        res[f"sysband_{name}"] = dict(err=err, ms=ms, plain_ms=plain_ms)
+        res[f"sysband_{name}"] = dict(ms=ms)
         print(f"[phase 2] sysband_{name}: B={st.B} EBB={st.EBB} NB={st.NB} "
-              f"NS={sb.geometry(st.EBB)[0]} aborts {int(p_abort.sum())}, "
-              f"bit-exact on the contract, kernel {ms:.3f} ms, plain on the "
-              f"host {plain_ms:.1f} ms")
+              f"NS={sb.geometry(st.EBB)[0]}, kernel {ms:.3f} ms")
+        sysband_plain_check(pool, f"sysband_{name}", sb.sysband_raw(st),
+                            bc.stage_banded(b, "cpu"), res[f"sysband_{name}"])
 
     # split epilogue: lane 2j forward, 2j+1 reverse half pass of task j
     il = ([], [], [], [])
@@ -560,22 +595,169 @@ def phase2_deepband(gen, torch):
         "hsplit", prepare_banded_batch(*il[:3], full=False,
                                        text_finish=il[3]), torch)
 
-    for ws in (20, 32):
-        wb = wc.prepare_windowed_batch(pats, txts, window_size=ws)
-        stw, hostw = wc.stage_windowed(wb, "cuda"), wc.stage_windowed(wb,
-                                                                      "cpu")
-        cells = wc.hew_cell_threshold(ws, 1, 40)
-        kern = wc.windowed_score_staged(stw, ws, 1, cells)
-        torch.cuda.synchronize()
-        plain, plain_ms = host_ms(
-            lambda: wc.windowed_scan_torch(hostw, ws, 1, cells))
-        err = max(max_abs_err(a.cpu(), b_) for a, b_ in zip(kern, plain))
-        check(err == 0, f"windowed_ws{ws}: kernel disagrees with plain "
-              f"version")
-        ms = cuda_ms(lambda: wc.windowed_score_staged(stw, ws, 1, cells), 5)
-        res[f"windowed_ws{ws}"] = dict(err=err, ms=ms, plain_ms=plain_ms)
-        print(f"[phase 2] windowed ws={ws}: bit-exact, kernel {ms:.3f} ms, "
-              f"plain on the host {plain_ms:.1f} ms")
+    for ws, ovl in WINDOW_SHAPES:
+        res.update(windowed_check(f"windowed_ws{ws}", pats, txts, ws, ovl,
+                                  torch, pool))
+    return res
+
+
+def sysband_plain_check(pool, name, kern, host, entry):
+    """The systolic pass's outputs `kern` (the raw pass and its ABORT
+    flags, on the card) against its plain version on the host batch
+    `host`: the ABORT flags equal, the other lanes on its contract."""
+    from quicked_tpu_torch.ops import banded_sysband_cuda as sb
+
+    k_out, k_abort = host_tensors(kern[0]), kern[1].cpu()
+
+    def compare(plain):
+        p_out, p_abort = plain
+        check(bool((k_abort == p_abort).all()),
+              f"{name}: ABORT flags differ from the plain version")
+        return band_err(k_out, p_out, (~p_abort).nonzero()[:, 0])
+    plain_check(pool, name, None, sb.banded_sysband_torch, (host,), entry,
+                compare)
+
+
+# the windowed kernel's branches: ws 1 (ovl 0); the last window in shared
+# memory (14) and the first in the scratch (15); 20; past one warp (33)
+WINDOW_SHAPES = ((1, 0), (14, 1), (15, 1), (20, 1), (33, 1))
+
+
+def windowed_check(name, pats, txts, ws, ovl, torch, pool, reps=5):
+    """The windowed kernel on the pairs against its plain version on a
+    host copy, (score, hew) bit-exact; its time by CUDA events."""
+    from quicked_tpu_torch.ops import windowed_cuda as wc
+
+    wb = wc.prepare_windowed_batch(pats, txts, window_size=ws)
+    stw = wc.stage_windowed(wb, "cuda")
+    cells = wc.hew_cell_threshold(ws, ovl, 40)
+    kern = host_tensors(wc.windowed_score_staged(stw, ws, ovl, cells))
+    ms = cuda_ms(lambda: wc.windowed_score_staged(stw, ws, ovl, cells), reps)
+    _, (b_ms, b_by) = windowed_bound(stw, ws, ovl)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    geo = wc.windowed_geometry(ws, len(pats), sms, wc.max_shared_bytes(0))
+    entry = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"[phase 2] {name}: ws={ws} ovl={ovl} B={len(pats)} "
+          f"({geo.pairs_per_warp} per warp, "
+          f"{'shared' if geo.shared_bytes else 'scratch'}), kernel {ms:.3f} "
+          f"ms (bound {b_ms:.4f} ms, {b_by})")
+    plain_check(pool, name, kern, wc.windowed_scan_torch,
+                (wc.stage_windowed(wb, "cpu"), ws, ovl, cells), entry)
+    return {name: entry}
+
+
+def phase2_batches(gen, torch, pool):
+    """The windowed kernel on batches of 1, 17 and more than 132 pairs
+    (1, 4 and 32 pairs per warp: partial segments and CTAs), the plain
+    version on a host copy."""
+    res = {}
+    one = list(gen.generate_pairs(1, SMALL_LEN, error=0.1, indels_num=2,
+                                  indels_length=100, seed=SEED + 70))
+    small = list(gen.generate_pairs(140, 150, error=0.1, seed=SEED + 71))
+    tiny = list(gen.generate_pairs(4300, 90, error=0.1, seed=SEED + 72))
+    for name, ws, ovl, pairs in (("b1", 9, 1, one), ("b17", 2, 1, small[:17]),
+                                 ("b140", 2, 1, small),
+                                 ("b700", 2, 1, small * 5),
+                                 ("b4300", 1, 0, tiny)):
+        res.update(windowed_check(f"windowed_{name}", [p for p, _ in pairs],
+                                  [t for _, t in pairs], ws, ovl, torch,
+                                  pool, reps=3))
+    return res
+
+
+def synthetic_planes(EBB, T, B, seed, ones=0.93):
+    """The traceback's inputs over random planes: Pv bits one at the rate
+    `ones` (long D-runs), random Mv, characters, band offsets and lengths
+    (a pattern of the band's full depth, a text of T columns, an empty
+    text). The walk is defined on any planes, so this reaches depths the
+    fill's geometry never gives (EBB 1). Host tensors."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    bits = rng.random((T, EBB, B, 64)) < ones
+    pv = torch.from_numpy((bits * (1 << np.arange(64, dtype=np.uint64)))
+                          .sum(-1).astype(np.uint64).view(np.int64))
+    mv = torch.from_numpy(rng.integers(0, 2**63, (T, EBB, B),
+                                       dtype=np.int64))
+    PP = EBB * 64 + 100
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    praw = torch.from_numpy(rng.choice(acgt, (PP, B)))
+    traw = torch.from_numpy(rng.choice(acgt, (T, B)))
+    plen = torch.tensor(rng.integers(0, PP + 1, B), dtype=torch.int32)
+    tlen = torch.tensor(rng.integers(0, T + 1, B), dtype=torch.int32)
+    plen[0], tlen[1], tlen[-1] = PP, T, 0
+    prolog = torch.tensor(rng.integers(0, min(EBB, 3) + 1, B),
+                          dtype=torch.int32)
+    return pv, mv, praw, traw, plen, tlen, prolog
+
+
+def traceback_check(name, dev_args, host_args, torch, pool, lanes=None,
+                    reps=3, phase="phase 2"):
+    """The traceback kernel on `dev_args` against its plain version on the
+    host copy `host_args` (of lanes `lanes` of the batch, or all of it),
+    every output bit-exact; its time on the whole batch by CUDA events and
+    its bound."""
+    from quicked_tpu_torch.ops import banded_traceback_cuda as btc
+
+    kern = btc.traceback_records(*dev_args)
+    idx = slice(None) if lanes is None else torch.tensor(lanes).cuda()
+    ms = cuda_ms(lambda: btc.traceback_records(*dev_args), reps)
+    b_ms, b_by = traceback_bound(dev_args[0], kern)
+    T, EBB, B = dev_args[0].shape
+    entry = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+    which = "all lanes" if lanes is None else f"lanes {lanes}"
+    print(f"[{phase}] {name}: B={B} T={T} EBB={EBB}, max run "
+          f"{int(kern[0].max())}, {which} to the plain version: kernel "
+          f"{ms:.3f} ms (bound {b_ms:.4f} ms, {b_by})")
+    plain_check(pool, name, [k[..., idx].cpu() for k in kern],
+                btc.traceback_records_torch, host_args, entry)
+    return {name: entry}
+
+
+def traceback_bound(mat_pv, out):
+    """Bound of one traceback call: per walked column a Pv and an Mv word
+    and two characters read, every column's 5-byte record written."""
+    T, _, B = mat_pv.shape
+    runs, opcs = out[:2]
+    walked = int(((opcs != 0) | (runs != 0)).sum())
+    return bound(walked * (8 + 8 + 1 + 1) + T * B * 5 + B * 20)
+
+
+def phase2_traceback(gen, torch, pool):
+    """The traceback kernel at its branches, the plain version on a host
+    copy: one pair (B = 1) with a 500-row D-run (eight words, past the
+    staged window), filled on the card; random planes at EBB 1, 128 and
+    7300 whose D-runs reach band words far below the cursor (read from
+    device memory)."""
+    import numpy as np
+
+    from quicked_tpu_torch.ops import banded_cuda as bc
+    from quicked_tpu_torch.ops import banded_traceback_cuda as btc
+    from quicked_tpu_torch.ops.batch_prep import prepare_banded_batch
+
+    res = {}
+    rng = np.random.default_rng(SEED + 80)
+    s = "".join(rng.choice(list("ACGT"), 1400))
+    z = "".join(rng.choice(list("ACGT"), 500))
+    b = prepare_banded_batch([s + z], [s], [600], full=True)
+    out = bc.fill_staged(bc.stage_banded(b, "cuda"))
+    praw, traw = btc.prep_raw_frames([(s + z).encode()], [s.encode()],
+                                     out["mat_pv"].shape[0], len(s + z))
+    lanes = [torch.tensor(a, dtype=torch.int32)
+             for a in (b.plen, b.tlen, b.prolog)]
+    host = (out["mat_pv"].cpu(), out["mat_mv"].cpu(), torch.from_numpy(praw),
+            torch.from_numpy(traw), *lanes)
+    dev = (out["mat_pv"], out["mat_mv"]) + tuple(x.cuda() for x in host[2:])
+    res.update(traceback_check("traceback_del500", dev, host, torch, pool))
+    check(int(btc.traceback_records(*dev)[0].max()) == 500,
+          "traceback_del500: no 500-row D-run")
+    for ebb, t, ones in ((1, 200, 0.93), (1, 200, 0.99), (128, 200, 0.93),
+                         (128, 200, 0.99), (7300, 64, 0.99)):
+        host = synthetic_planes(ebb, t, 5 if ebb < 7300 else 2, ebb, ones)
+        res.update(traceback_check(
+            f"traceback_ebb{ebb}_{int(ones * 100)}",
+            tuple(x.cuda() for x in host), host, torch, pool))
     return res
 
 
@@ -621,7 +803,7 @@ def level1_batch(pairs, torch):
                                 text_finish=[x[3] for x in sel])
 
 
-def deep_plain_check(name, st, b, lanes, torch, cscan_plain=True):
+def deep_plain_check(name, st, b, lanes, torch, pool, cscan_plain=True):
     """Systolic and carry-scan kernels on lanes `lanes` of the CUDA batch
     `st` (staged from the BandedBatch `b`) against their plain versions
     on a host copy of the same lanes: ABORT flags equal, the systolic pass
@@ -634,39 +816,25 @@ def deep_plain_check(name, st, b, lanes, torch, cscan_plain=True):
     idx = torch.tensor(lanes)
     host = bc.select_lanes(bc.stage_banded(b, "cpu"), idx)
     sel = bc.select_lanes(st, idx.cuda())
-    k_sys, k_abort = sb.sysband_raw(sel)
-    k_cs = cc.cscan_staged(sel)
-    torch.cuda.synchronize()
-    (p_sys, p_abort), sys_plain_ms = host_ms(
-        lambda: sb.banded_sysband_torch(host))
-    check(torch.equal(k_abort.cpu(), p_abort),
-          f"{name}: systolic ABORT flags differ from the plain version")
-    err_sys = band_err(k_sys, p_sys, (~p_abort).nonzero()[:, 0])
-    check(err_sys == 0, f"{name}: systolic kernel disagrees with its plain "
-          f"version")
     sys_ms = cuda_ms(lambda: sb.sysband_raw(sel), 3)
-    res = {f"sysband_{name}": dict(err=err_sys, ms=sys_ms,
-                                   plain_ms=sys_plain_ms)}
-    res[f"sysband_{name}"].update(zip(("bound_ms", "bound_by"),
-                                      banded_bound(sel)))
-    msg = (f"[phase 2] {name}, lanes {lanes}: sysband (aborts "
-           f"{int(p_abort.sum())}) equal to its plain version, kernel "
-           f"{sys_ms:.3f} ms, plain on the host {sys_plain_ms:.1f} ms")
+    entry = dict(ms=sys_ms)
+    entry.update(zip(("bound_ms", "bound_by"), banded_bound(sel)))
+    res = {f"sysband_{name}": entry}
+    sysband_plain_check(pool, f"sysband_{name}", sb.sysband_raw(sel), host,
+                        entry)
+    msg = (f"[phase 2] {name}, lanes {lanes} to the plain versions: sysband "
+           f"{sys_ms:.3f} ms")
     if cscan_plain:
-        p_cs, cs_plain_ms = host_ms(lambda: cc.banded_cscan_torch(host))
-        err_cs = max(max_abs_err(k_cs[k].cpu(), p_cs[k]) for k in p_cs)
-        check(err_cs == 0, f"{name}: carry-scan kernel disagrees with its "
-              f"plain version")
         cs_ms = cuda_ms(lambda: cc.cscan_staged(sel), 3)
-        res[f"cscan_{name}"] = dict(err=err_cs, ms=cs_ms,
-                                    plain_ms=cs_plain_ms)
-        msg += (f"; cscan equal to its plain version, kernel {cs_ms:.3f} "
-                f"ms, plain on the host {cs_plain_ms:.1f} ms")
+        res[f"cscan_{name}"] = dict(ms=cs_ms)
+        plain_check(pool, f"cscan_{name}", host_tensors(cc.cscan_staged(sel)),
+                    cc.banded_cscan_torch, (host,), res[f"cscan_{name}"])
+        msg += f", cscan {cs_ms:.3f} ms"
     print(msg)
     return res
 
 
-def phase2_fulldepth(long_pairs, torch):
+def phase2_fulldepth(long_pairs, torch, pool):
     """Systolic and carry-scan passes against the fill kernel on the
     long-read phase's deep level-1 bucket, the only place recentering and
     deep bands meet at full size; then both against their plain versions
@@ -698,11 +866,11 @@ def phase2_fulldepth(long_pairs, torch):
     res = dict(fulldepth_sysband=dict(err=err_sys, ms=sys_ms),
                fulldepth_cscan=dict(err=err_cs, ms=cs_ms),
                fulldepth_fill=dict(ms=fill_ms))
-    res.update(deep_plain_check("level1", st, b, [0, st.B - 1], torch))
+    res.update(deep_plain_check("level1", st, b, [0, st.B - 1], torch, pool))
     return res
 
 
-def phase2_levels(long_pairs, torch):
+def phase2_levels(long_pairs, torch, pool):
     """The split epilogue and the fill at the shapes the long-read phase
     gives them: one run of that phase records each fused level batch it
     hands the fill and split kernels, and its first stage-4 base-case
@@ -742,7 +910,7 @@ def phase2_levels(long_pairs, torch):
         st = bc.stage_banded(b, "cuda")
         if i - 1 == small:
             res[f"fill_level{i}"] = fill_plain_check(
-                f"fill_level{i}", st, b, [0, 1], torch)
+                f"fill_level{i}", st, b, [0, 1], torch, pool)
         else:
             ms = cuda_ms(lambda: bc.fill_staged(st), 3)
             b_ms, b_by = banded_bound(st)
@@ -752,11 +920,11 @@ def phase2_levels(long_pairs, torch):
                   f"{b_by})")
     b = chunks[0]
     res["fill_basecase"] = fill_plain_check(
-        "fill_basecase", bc.stage_banded(b, "cuda"), b, [0], torch)
+        "fill_basecase", bc.stage_banded(b, "cuda"), b, [0], torch, pool)
     return res
 
 
-def phase2_wide(gen, torch):
+def phase2_wide(gen, torch, pool):
     """The systolic kernel's 4- and 16-rows-per-thread instantiations
     (resident windows over 1024 and 4096 rows), which no bucket of the
     long-read phase reaches: two pairs each, the systolic pass against the
@@ -800,12 +968,12 @@ def phase2_wide(gen, torch):
               f"to cscan on every lane (fill {fill_ms:.3f} ms)")
         res[f"cscan_vs_sysband_{name}"] = dict(err=err)
         res[f"fill_{name}"] = dict(err=err_fill, ms=fill_ms)
-        res.update(deep_plain_check(name, st, b, [0], torch,
+        res.update(deep_plain_check(name, st, b, [0], torch, pool,
                                     cscan_plain=insert == 0))
     return res
 
 
-def phase2_banded(gen, torch):
+def phase2_banded(gen, torch, pool):
     """The carry-scan pass at the shape of phase 5's BANDED score run
     (the same 16 pairs x 30 kbp at bandwidth 15), against its plain
     version on a host copy."""
@@ -817,19 +985,15 @@ def phase2_banded(gen, torch):
     b = prepare_banded_batch([p for p, _ in bpairs], [t for _, t in bpairs],
                              [max(len(p), len(t)) * 15 // 100
                               for p, t in bpairs], full=False)
-    st, host = bc.stage_banded(b, "cuda"), bc.stage_banded(b, "cpu")
-    kern = cc.cscan_staged(st)
-    torch.cuda.synchronize()
-    plain, plain_ms = host_ms(lambda: cc.banded_cscan_torch(host))
-    err = max(max_abs_err(kern[k].cpu(), plain[k]) for k in kern)
-    check(err == 0, "cscan_banded: kernel disagrees with plain version")
+    st = bc.stage_banded(b, "cuda")
     ms = cuda_ms(lambda: cc.cscan_staged(st), 5)
     b_ms, b_by = banded_bound(st)
-    print(f"[phase 2] cscan_banded: B={st.B} EBB={st.EBB} NB={st.NB} "
-          f"bit-exact, kernel {ms:.3f} ms (bound {b_ms:.3f} ms, {b_by}), "
-          f"plain on the host {plain_ms:.1f} ms")
-    return dict(cscan_banded=dict(err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=b_ms, bound_by=b_by))
+    entry = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"[phase 2] cscan_banded: B={st.B} EBB={st.EBB} NB={st.NB}, kernel "
+          f"{ms:.3f} ms (bound {b_ms:.3f} ms, {b_by})")
+    plain_check(pool, "cscan_banded", host_tensors(cc.cscan_staged(st)),
+                cc.banded_cscan_torch, (bc.stage_banded(b, "cpu"),), entry)
+    return dict(cscan_banded=entry)
 
 
 def banded_pairs(gen):
@@ -887,6 +1051,163 @@ def report_run(tag, pairs, wall, launches, timers):
           f"{bases / wall:.4g} aligned bases/s")
     print(f"[{tag}] stage seconds " + json.dumps(stages))
     print(f"[{tag}] launches " + json.dumps(launches))
+
+
+def windowed_bound(st, ws, ovl):
+    """(windows, (bound_ms, bound_by)) of a windowed launch over the
+    staged batch `st`: its inputs read once and (score, hew) written once;
+    64 ws x ws Myers advances a window, over the fewest windows the walk
+    can take. A window moves each cursor back by at most 64 (ws - ovl)
+    and the walk ends when one of them passes 0, so a pair walks at least
+    ceil(min(plen, tlen) / (64 (ws - ovl))) windows."""
+    import torch
+
+    stride = 64 * max(ws - ovl, 1)
+    shortest = torch.minimum(st.plen, st.tlen).long()
+    windows = int(((shortest + stride - 1) // stride).sum())
+    nbytes = sum(x.numel() * x.element_size() for x in (
+        st.peq, st.text_enc, st.text_raw, st.pat_raw, st.plen, st.tlen,
+        st.num_words)) + 8 * st.plen.numel()
+    return windows, bound(nbytes, windows * 64 * ws * ws * OPS_PER_ADVANCE)
+
+
+class Recorder:
+    """While active, records what the main path hands the windowed and
+    traceback kernels: every windowed batch with its outputs (by wrapping
+    `windowed_cuda.windowed_score_staged`), and the traceback inputs and
+    outputs of the first chunk, or of the largest (by wrapping
+    `banded_traceback_cuda.traceback_records`)."""
+
+    def __init__(self, largest_chunk):
+        self.largest = largest_chunk
+        self.windowed = []
+        self.chunk = None
+
+    def __enter__(self):
+        from quicked_tpu_torch.ops import banded_traceback_cuda as btc
+        from quicked_tpu_torch.ops import windowed_cuda as wc
+
+        self.real = wc.windowed_score_staged, btc.traceback_records
+
+        def windowed(st, WS, OVL, cells):
+            out = self.real[0](st, WS, OVL, cells)
+            self.windowed.append((st, WS, OVL, cells, out))
+            return out
+
+        def traceback(*args):
+            out = self.real[1](*args)
+            size = args[0].numel()
+            if self.chunk is None or (self.largest and
+                                      size > self.chunk[0][0].numel()):
+                self.chunk = (args, out)
+            return out
+
+        wc.windowed_score_staged, btc.traceback_records = windowed, traceback
+        return self
+
+    def __exit__(self, *exc):
+        from quicked_tpu_torch.ops import banded_traceback_cuda as btc
+        from quicked_tpu_torch.ops import windowed_cuda as wc
+
+        wc.windowed_score_staged, btc.traceback_records = self.real
+
+
+def record_run(pairs, largest_chunk):
+    """A `Recorder` over one more run of `pairs` through the aligner, so
+    that the timed runs go without the memory it holds on the card."""
+    from quicked_tpu_torch.api import BatchAligner
+    from quicked_tpu_torch.params import QuickedParams
+
+    with Recorder(largest_chunk) as rec:
+        BatchAligner(QuickedParams(), device="cuda").align(pairs)
+    return rec
+
+
+def windowed_host_c(st, ws, ovl, cells, out, hew_threshold):
+    """Every pair of a recorded windowed batch: the kernel's (score, hew)
+    against the host C qh_windowed_score on the same sequences."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from quicked_tpu_torch import dna, native
+    from quicked_tpu_torch.ops import windowed_cuda as wc
+
+    check(wc.hew_cell_threshold(ws, ovl, hew_threshold) == cells,
+          f"recorded windowed batch: {cells} HEW cells at ws {ws} is not "
+          f"the {hew_threshold}% threshold")
+    plen, tlen = st.plen.cpu().numpy(), st.tlen.cpu().numpy()
+    pat = st.pat_raw.cpu().numpy().astype(np.uint8)
+    txt = st.text_raw.cpu().numpy().astype(np.uint8)
+
+    def one(b):
+        p = pat[:plen[b], b].tobytes()
+        t = txt[:tlen[b], b].tobytes()
+        return native.windowed_score(dna.encode(p.decode()), p,
+                                     dna.encode(t.decode()), t, ws, ovl,
+                                     hew_threshold)
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        want = list(ex.map(one, range(len(plen))))
+    got = list(zip(out[0].cpu().tolist(), out[1].cpu().tolist()))
+    bad = [b for b in range(len(plen)) if got[b] != want[b]]
+    check(not bad, f"windowed pairs {bad[:5]}: kernel differs from the host "
+          f"C qh_windowed_score")
+    return len(plen)
+
+
+def select_windowed(st, lanes):
+    """A host copy of lanes `lanes` of a staged windowed batch."""
+    from quicked_tpu_torch.ops import windowed_cuda as wc
+
+    idx = lanes.to(st.peq.device)
+    return wc.StagedWindowed(*(x[..., idx].cpu() for x in (
+        st.peq, st.text_enc, st.text_raw, st.pat_raw, st.plen, st.tlen,
+        st.num_words)))
+
+
+def check_recorded(tag, rec, torch, pool, plain=False):
+    """At the shapes one slice's run handed the two kernels: every pair of
+    every windowed batch against the host C windowed bound, each batch
+    timed with its bound (and, with `plain`, the stage-2 forward batch
+    held to the plain version on two lanes of a host copy); the recorded
+    traceback chunk against its plain version on two lanes of a host
+    copy, timed with its bound."""
+    from quicked_tpu_torch.ops import windowed_cuda as wc
+    from quicked_tpu_torch.params import QuickedParams
+
+    params = QuickedParams()
+    res = {}
+    check(len(rec.windowed) >= 3, f"{tag}: {len(rec.windowed)} windowed "
+          f"batches recorded, expected stage 1 and stage 2 both ways")
+    for i, (st, ws, ovl, cells, out) in enumerate(rec.windowed):
+        thr = params.hew_threshold[0 if i == 0 else 1]
+        n = windowed_host_c(st, ws, ovl, cells, out, thr)
+        ms = cuda_ms(lambda: wc.windowed_score_staged(st, ws, ovl, cells), 3)
+        windows, (b_ms, b_by) = windowed_bound(st, ws, ovl)
+        name = f"windowed_{tag}_{i + 1}"
+        entry = dict(err=0, ms=ms, bound_ms=b_ms, bound_by=b_by)
+        msg = ""
+        if plain and i == 1:
+            lanes = torch.tensor([0, n - 1])
+            plain_check(pool, name, [o[lanes.to(o.device)].cpu() for o in out],
+                        wc.windowed_scan_torch,
+                        (select_windowed(st, lanes), ws, ovl, cells), entry)
+            msg = f"; lanes 0, {n - 1} to the plain version"
+        res[name] = entry
+        print(f"[recorded] {name}: ws={ws} B={n} T={st.text_enc.shape[0]}, "
+              f"at least {windows} windows, all pairs equal to the host C "
+              f"windowed bound{msg}; kernel {ms:.3f} ms (bound {b_ms:.4f} "
+              f"ms, {b_by})")
+    check(rec.chunk is not None, f"{tag}: no traceback chunk recorded")
+    args, _ = rec.chunk
+    B = args[0].shape[2]
+    lanes = [0, B - 1]
+    idx = torch.tensor(lanes, device=args[0].device)
+    host = tuple(x[..., idx].cpu() for x in args)
+    res.update(traceback_check(f"traceback_{tag}", args, host, torch, pool,
+                               lanes=lanes, phase="recorded"))
+    return res
 
 
 def phase3(gen, args, torch):
@@ -1100,6 +1421,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
+    pool = None
     try:
         t_start = time.perf_counter()
         smi = subprocess.run(
@@ -1126,19 +1448,31 @@ def main(argv=None) -> int:
               f"{'built or loaded' if have_native else 'unavailable'} in "
               f"{time.perf_counter() - t0:.1f} s")
 
-        p2 = phase2(generate, SEED, torch)
-        p2.update(phase2_deep(generate, torch))
-        p2.update(phase2_stripes(generate, torch))
-        p2.update(phase2_deepband(generate, torch))
-        p2.update(phase2_wide(generate, torch))
-        p2.update(phase2_banded(generate, torch))
+        pool = PlainPool(max(1, min(6, (os.cpu_count() or 2) - 2)))
+        p2 = phase2(generate, SEED, torch, pool)
+        p2.update(phase2_deep(generate, torch, pool))
+        p2.update(phase2_stripes(generate, torch, pool))
+        p2.update(phase2_deepband(generate, torch, pool))
+        p2.update(phase2_wide(generate, torch, pool))
+        p2.update(phase2_banded(generate, torch, pool))
         long_pairs = make_pairs(generate, args.long_pairs, args.long_length,
                                 SEED + 30)
-        p2.update(phase2_fulldepth(long_pairs, torch))
-        p2.update(phase2_levels(long_pairs, torch))
+        p2.update(phase2_fulldepth(long_pairs, torch, pool))
+        p2.update(phase2_levels(long_pairs, torch, pool))
+        p2.update(phase2_batches(generate, torch, pool))
+        p2.update(phase2_traceback(generate, torch, pool))
+        t0 = time.perf_counter()
+        pool.drain()
+        print(f"[plain] phase 2's plain versions done "
+              f"{time.perf_counter() - t0:.1f} s after its kernels")
         pairs, launches, p3 = phase3(generate, args, torch)
         p2.update(p3)
         long_launches, banded_launches = phase5(generate, long_pairs, torch)
+        p2.update(check_recorded("10kbp", record_run(pairs, True), torch,
+                                 pool, plain=True))
+        p2.update(check_recorded("long", record_run(long_pairs, False),
+                                 torch, pool))
+        pool.drain()
         phase4([("10 kbp slice", pairs), ("long-read slice", long_pairs)],
                torch)
         check("jax" not in sys.modules, "jax was imported")
@@ -1146,6 +1480,9 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if pool is not None:
+            pool.close()
 
     def row(name, launched, prefixes, timed):
         """The kernel's line: max_abs_err over every comparison whose key
@@ -1167,9 +1504,9 @@ def main(argv=None) -> int:
     rows = [
         row("banded_fill", launches["banded_fill"], ("fill_",), level),
         row("banded_traceback", launches["banded_traceback"],
-            ("traceback",), "traceback"),
+            ("traceback",), "traceback_10kbp"),
         row("windowed_score", launches["windowed_score"], ("windowed_",),
-            "windowed_ws9"),
+            "windowed_10kbp_2"),
         row("banded_cscan", banded_launches["banded_cscan"],
             ("cscan_", "fulldepth_cscan"), "cscan_banded"),
         row("banded_sysband", long_launches["banded_sysband"],

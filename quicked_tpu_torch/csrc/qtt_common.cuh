@@ -58,6 +58,32 @@ __device__ __forceinline__ int out_state(uint32_t ph, uint32_t mh) {
   return ph ? P_ST : (mh ? M_ST : Z_ST);
 }
 
+// The 32-bit shared address of a pointer into shared memory. As volatile
+// asm it is computed once and kept in a register: the compiler would
+// rebuild it from the CTA's shared window at every use inside a loop.
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  unsigned a;
+  asm volatile("{ .reg .u64 t; cvta.to.shared.u64 t, %1; cvt.u32.u64 %0, t; }"
+               : "=r"(a)
+               : "l"(p));
+  return a;
+}
+
+// Loads from shared memory at a 32-bit shared address (shared_addr). As
+// volatile asm they stay where they are written: a walk issues a column's
+// loads together, ahead of the branch that decides which of them it
+// needs, where the compiler would merge them into one load after it.
+__device__ __forceinline__ uint64_t lds_u64(unsigned addr) {
+  uint64_t x;
+  asm volatile("ld.shared.u64 %0, [%1];" : "=l"(x) : "r"(addr));
+  return x;
+}
+__device__ __forceinline__ int lds_s32(unsigned addr) {
+  int x;
+  asm volatile("ld.shared.s32 %0, [%1];" : "=r"(x) : "r"(addr));
+  return x;
+}
+
 // Bits 0..k of a word, k in [0, 63].
 __device__ __forceinline__ uint64_t mask_le(int k) {
   return k >= 63 ? ONES : ((2ull << k) - 1ull);

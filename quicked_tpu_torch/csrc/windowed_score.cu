@@ -6,214 +6,348 @@
 // (bpm_windowed.c:504-628): tie-break D, I, M, X with raw-character M
 // tests; pattern pad -2 and text pad -1 never match.
 //
-// Design: one thread per pair walks its own diagonal one window of
-// (64*ws) x (64*ws) cells at a time. Per window it builds the shifted PEQ
-// window (a 64-bit funnel shift per word), fills 64*ws columns with the
-// unmasked Myers advance, then backtraces greedily column by column,
-// taking each whole D-run from the highest zero Pv bit below the cursor.
-// The per-window state (Pv after and Mv before each column, 16*ws bytes
-// per column) goes to a scratch buffer in device memory, lane-minor so a
-// warp's stores coalesce: 576 * 9 * 16 B = 83 KB per pair at ws = 9.
-// Up to ws = 16 the shifted PEQ window and the ws band words of the
-// column being filled live in the thread (RegWindow); a wider window
-// keeps them in a second lane-minor scratch buffer (ScratchWindow,
-// 56 * ws bytes per pair), so every window size runs.
+// What bounds it on the H100: each pair is a long chain of dependent
+// steps (per window 64*ws columns of ws Myers advances, then a greedy
+// walk of up to 64*ws columns), ~195 windows per 100 kbp pair at ws 9.
+// The operations (~30 per advance) would take microseconds over the card;
+// what costs is the latency of each dependent step and how many chains
+// run at once. One thread per pair (the first port) ran a 100-pair batch
+// as one CTA on one SM, with every window word in device memory.
 //
-// What bounds it on the H100: a lane is a long sequential walk (fill and
-// backtrace of ~len/(64*(ws-ovl)) windows), so the kernel is latency-bound
-// with B threads in flight; the scratch traffic (two 8-byte stores per
-// block per column, then reads back on the walk) mostly stays in L2.
+// Design:
+// - A pair owns a segment of `span` lanes of a warp (span a power of 2,
+//   at least min(ws, 32)); a warp holds 32 / span pairs, and the wrapper
+//   narrows that packing until the batch spans the card's SMs. One warp
+//   per CTA.
+// - The window fills in parallel as a systolic skew: lane i of the
+//   segment owns block i (rows 64i..64i+63) and fills U = 8 columns of it
+//   a step, columns 8(s - i).. at step s, so a window takes 8*ws + ws - 1
+//   steps; the 8 columns' ph/mh carries leaving block i reach lane i + 1
+//   one step later, packed in one segmented __shfl_up_sync. Eight columns
+//   a step put eight dependent advances between two shuffles and spread a
+//   step's fixed cost (the shuffle, the character load, the stores); at
+//   ws 9 the skew idles a lane for 8 of 80 steps. The fill's
+//   carry-map ballots (qtt_common.cuh) would give every block's carry-in
+//   in one step, but cost three ballots and a map composition per column
+//   for ws <= 16 blocks, where the skew costs ws - 1 extra steps per
+//   8*ws. Past 32 blocks the lanes take the window in groups of 32
+//   blocks, one group after another, the carries between groups kept per
+//   column.
+// - Each lane builds its block's shifted PEQ words once per window into a
+//   shared table it indexes by the text character.
+// - The window (Pv after and Mv before every column, 16 * 64 * ws * ws
+//   bytes), the window's text (encoded and raw) and raw pattern
+//   characters sit in shared memory, block-major so that the skewed
+//   stores of a step hit distinct banks. Where one pair's window does not
+//   fit a CTA's 227 KB (ws >= 15), the same body keeps the window in a
+//   pair-major device-memory scratch and reads the characters straight
+//   from the inputs.
+// - The greedy backtrace is one lane per pair over that window: the whole
+//   D-run from the highest zero Pv bit at or below the cursor, then one
+//   I/M/X step. A column's Pv word, its Mv word and pattern character for
+//   the case of no D-run (the common one) are loaded together, so a
+//   column costs one shared-memory latency unless a D-run moves the
+//   cursor.
+// The inputs arrive pair-major (the wrapper transposes the staged
+// lane-minor batch), so a segment's staging loads are contiguous.
 
 #include "qtt_common.cuh"
 
 namespace {
 
 using qtt::W;
-constexpr int MAX_REG_WS = 16;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int U = 8;                 // columns a lane fills per skew step
 
-struct RegWindow {
-  uint64_t peqw[MAX_REG_WS * 5], pv[MAX_REG_WS], mv[MAX_REG_WS];
-  __device__ uint64_t &eq(int i, int c) { return peqw[i * 5 + c]; }
-  __device__ uint64_t &P(int i) { return pv[i]; }
-  __device__ uint64_t &M(int i) { return mv[i]; }
+struct WindowedArgs {
+  const uint64_t* peq;       // (B, KP, 5)
+  const uint8_t* text_enc;   // (B, T)
+  const int32_t* text_raw;   // (B, T)
+  const int32_t* pat_raw;    // (B, P)
+  const int32_t *plen, *tlen, *num_words;   // (B,)
+  uint8_t* scratch;          // (B, pair_bytes) in scratch mode, else null
+  int32_t *score_out, *hew_out;             // (B,)
+  int B, KP, T, P, WS, OVL, hew_cells, span;
+  size_t pair_bytes;         // a pair's shared (or scratch) region
 };
 
-struct ScratchWindow {     // lane-minor: word w of lane b at w * B + b
-  uint64_t *peqw, *pv, *mv;
-  size_t Bs;
-  __device__ uint64_t &eq(int i, int c) {
-    return peqw[(size_t)(i * 5 + c) * Bs];
-  }
-  __device__ uint64_t &P(int i) { return pv[(size_t)i * Bs]; }
-  __device__ uint64_t &M(int i) { return mv[(size_t)i * Bs]; }
-};
+// Per pair, shared mode: Pv after and Mv before each column (u64,
+// block-major: word i of column tp at i * COLS + tp), the raw text and
+// pattern characters (i32) and the encoded text (u8) of the window.
+// Scratch mode: the two planes, then two carry buffers of COLS bytes.
+__host__ __device__ inline size_t shared_pair_bytes(int ws) {
+  const size_t cols = (size_t)W * ws;
+  return cols * (16 * (size_t)ws + 9);
+}
+__host__ __device__ inline size_t scratch_pair_bytes(int ws) {
+  const size_t cols = (size_t)W * ws;
+  return cols * (16 * (size_t)ws + 2);
+}
 
-template <class Window>
-__device__ void windowed_lane(
-    const uint64_t* __restrict__ peq,      // (KP, 5, B)
-    const int32_t* __restrict__ text_enc,  // (T, B)
-    const int32_t* __restrict__ text_raw,  // (T, B)
-    const int32_t* __restrict__ pat_raw,   // (P, B)
-    const int32_t* __restrict__ plen, const int32_t* __restrict__ tlen,
-    const int32_t* __restrict__ num_words,
-    uint64_t* __restrict__ pv_after,       // scratch (64*WS, WS, B)
-    uint64_t* __restrict__ mv_before,      // scratch (64*WS, WS, B)
-    int32_t* __restrict__ score_out, int32_t* __restrict__ hew_out,
-    int B, int KP, int T, int P, int WS, int OVL, int hew_cells, int b,
-    Window &win) {
-  const size_t Bs = (size_t)B;
-  const int COLS = W * WS;
-  const int nw = num_words[b];
+// U encoded text characters from byte offset k (a multiple of U): one
+// load from the staged shared window, byte loads from an unaligned input.
+template <bool SMEM>
+__device__ __forceinline__ uint64_t load_chars(const uint8_t* te, int k) {
+  if (SMEM) return *reinterpret_cast<const uint64_t*>(te + k);
+  uint64_t c = 0;
+#pragma unroll
+  for (int u = 0; u < U; ++u) c |= (uint64_t)te[k + u] << (8 * u);
+  return c;
+}
+
+template <bool SMEM>
+__global__ void __launch_bounds__(32) windowed_score_kernel(
+    const WindowedArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  // each lane's block's shifted PEQ words, indexed by the character: a
+  // load, where a select over five registers branches, and the lanes of a
+  // skew read different characters
+  __shared__ uint64_t peq_s[32][5];
+  const int lane = threadIdx.x;
+  const int span = a.span;
+  const int seg = lane / span, sl = lane % span;
+  const int b = blockIdx.x * (32 / span) + seg;
+  const bool live = b < a.B;
+  const int bb = live ? b : 0;
+  const int WS = a.WS, COLS = W * WS, NQ = COLS / U;
+  const int NG = (WS + span - 1) / span;    // groups of span blocks
+
+  uint8_t* base = SMEM ? smem + (size_t)seg * a.pair_bytes
+                       : a.scratch + (size_t)bb * a.pair_bytes;
+  uint64_t* pv = reinterpret_cast<uint64_t*>(base);
+  uint64_t* mv = pv + WS * COLS;
+  uint8_t* tail = reinterpret_cast<uint8_t*>(mv + WS * COLS);
+  const size_t bT = (size_t)bb * a.T, bP = (size_t)bb * a.P;
+  const uint64_t* peq = a.peq + (size_t)bb * a.KP * 5;
+
+  const int nw = live ? a.num_words[b] : 1;
   // window-count bound: every window but the last moves pos_v + pos_h by
   // at least 64 * (ws - ovl)
-  const int max_windows = (P + T + W * max(WS - OVL, 1) - 1) /
-                              (W * max(WS - OVL, 1)) + 2;
-  int pos_v = plen[b] - 1, pos_h = tlen[b] - 1;
+  const int stride = W * max(WS - a.OVL, 1);
+  const int max_windows = (a.P + a.T + stride - 1) / stride + 2;
+  int pos_v = live ? a.plen[b] - 1 : -1;
+  int pos_h = live ? a.tlen[b] - 1 : -1;
   int score = 0, hew = 0;
 
-  for (int it = 0; it < max_windows && pos_v >= 0 && pos_h >= 0; ++it) {
+  for (int it = 0; it < max_windows; ++it) {
+    const bool act = pos_v >= 0 && pos_h >= 0;
+    if (!__any_sync(FULL, act)) break;
     const int v_min = max(pos_v - COLS + 1, 0);
     const int h_min = max(pos_h - COLS + 1, 0);
     const int shift = v_min % W, v_block = v_min / W;
 
-    // shifted PEQ window (bpm_windowed.c:237-244)
-    for (int i = 0; i < WS; ++i) {
-      const int row = v_block + i;
-      const int rc = min(row, KP - 1), rc1 = min(row + 1, KP - 1);
-      for (int c = 0; c < 5; ++c) {
-        const uint64_t lo =
-            row < nw ? peq[((size_t)rc * 5 + c) * Bs + b] : qtt::ONES;
-        const uint64_t hi =
-            row + 1 < nw ? peq[((size_t)rc1 * 5 + c) * Bs + b] : 0ull;
-        win.eq(i, c) =
-            shift == 0 ? lo : (lo >> shift) | (hi << (W - shift));
-      }
-    }
-
-    // window fill (bpm_windowed.c:202-280), no level masks
-    for (int i = 0; i < WS; ++i) {
-      win.P(i) = h_min == 0 ? qtt::ONES : 0ull;
-      win.M(i) = 0;
-    }
-    const uint32_t ph_first = v_min == 0 ? 1u : 0u;
-    for (int tp = 0; tp < COLS; ++tp) {
-      const int c = text_enc[(size_t)(h_min + tp) * Bs + b];
-      uint32_t ph = ph_first, mh = 0;
-      for (int i = 0; i < WS; ++i) {
-        mv_before[((size_t)tp * WS + i) * Bs + b] = win.M(i);
-        qtt::advance_block(win.eq(i, c), qtt::TOPBIT, win.P(i), win.M(i),
-                           ph, mh);
-        pv_after[((size_t)tp * WS + i) * Bs + b] = win.P(i);
-      }
-    }
-
-    // greedy backtrace, score-only tie-break D, I, M, X
-    const int v_ovl_rel = max(pos_v - W * (WS - OVL) + 1, 0) - v_min;
-    const int h_ovl_rel = max(pos_h - W * (WS - OVL) + 1, 0) - h_min;
-    int vr = pos_v - v_min, hr = pos_h - h_min, sc = 0;
-    while (hr >= 0 && vr >= v_ovl_rel && hr >= h_ovl_rel) {
-      const int tp = hr;       // column hr + 1 of the window
-      const int vru = min(max(vr, 0), COLS - 1);
-      int hz = -1;
-      for (int w = vru / W; w >= 0; --w) {
-        uint64_t y = ~pv_after[((size_t)tp * WS + w) * Bs + b];
-        if (w == vru / W) y &= qtt::mask_le(vru % W);
-        if (y) {
-          hz = W * w + 63 - __clzll((long long)y);
-          break;
+    // the window's characters
+    const uint8_t* te;
+    const int32_t *tr, *pr;
+    if (SMEM) {
+      int32_t* s_tr = reinterpret_cast<int32_t*>(tail);
+      int32_t* s_pr = s_tr + COLS;
+      uint8_t* s_te = reinterpret_cast<uint8_t*>(s_pr + COLS);
+      if (act) {
+#pragma unroll 4
+        for (int tp = sl; tp < COLS; tp += span) {
+          s_te[tp] = __ldg(a.text_enc + bT + h_min + tp);
+          s_tr[tp] = __ldg(a.text_raw + bT + h_min + tp);
+          s_pr[tp] = __ldg(a.pat_raw + bP + v_min + tp);
         }
       }
-      const int max_run = vru - v_ovl_rel + 1;
-      const int run = min(vru - hz, max_run);
-      const int v1 = vru - run;
-      if (run == max_run) {    // the window's exit, mid-run
-        sc += run;
-        vr = v1;
-        break;
-      }
-      const int v1u = min(max(v1, 0), COLS - 1);
-      const uint64_t m = mv_before[((size_t)tp * WS + v1u / W) * Bs + b];
-      const bool is_i = (m >> (v1u % W)) & 1ull;
-      const bool match = pat_raw[(size_t)(v_min + v1u) * Bs + b] ==
-                         text_raw[(size_t)(h_min + tp) * Bs + b];
-      sc += run + ((is_i || !match) ? 1 : 0);
-      vr = v1 - (is_i ? 0 : 1);
-      hr -= 1;
+      te = s_te;
+      tr = s_tr;
+      pr = s_pr;
+      __syncwarp();
+    } else {
+      te = a.text_enc + bT + h_min;
+      tr = a.text_raw + bT + h_min;
+      pr = a.pat_raw + bP + v_min;
     }
-    hew += sc > hew_cells ? 1 : 0;
-    score += sc;
-    pos_v = v_min + vr;
-    pos_h = h_min + hr;
+
+    // window fill (bpm_windowed.c:202-280), no level masks, as a skew of
+    // U columns per step
+    const uint64_t p_init = h_min == 0 ? qtt::ONES : 0ull;
+    const uint32_t first = v_min == 0 ? 0x5555u : 0u;   // ph = 1, U columns
+    for (int g = 0; g < NG; ++g) {
+      const int i = g * span + sl;                 // this lane's block
+      const int nvalid = min(span, WS - g * span);
+      const bool mine = act && sl < nvalid;
+      // carries between groups, U columns a 16-bit word (scratch mode
+      // only: ws > 32 > 14)
+      const uint16_t* carry_in =
+          reinterpret_cast<const uint16_t*>(tail + ((g + 1) & 1) * COLS);
+      uint16_t* carry_out = reinterpret_cast<uint16_t*>(tail + (g & 1) * COLS);
+
+      // the shifted PEQ window of block i (bpm_windowed.c:237-244)
+      const uint64_t* eqs = peq_s[lane];
+      if (mine) {
+        const int row = v_block + i;
+        const int rc = min(row, a.KP - 1), rc1 = min(row + 1, a.KP - 1);
+#pragma unroll
+        for (int c = 0; c < 5; ++c) {
+          const uint64_t lo = row < nw ? peq[(size_t)rc * 5 + c] : qtt::ONES;
+          const uint64_t hi = row + 1 < nw ? peq[(size_t)rc1 * 5 + c] : 0ull;
+          peq_s[lane][c] =
+              shift == 0 ? lo : (lo >> shift) | (hi << (W - shift));
+        }
+      }
+      ulonglong2* pvi = reinterpret_cast<ulonglong2*>(pv + i * COLS);
+      ulonglong2* mvi = reinterpret_cast<ulonglong2*>(mv + i * COLS);
+      uint64_t P = p_init, M = 0;
+      uint32_t cout = 0;            // carries out: ph | mh << 1, U columns
+      const int steps = NQ + nvalid - 1;
+      for (int s = 0; s < steps; ++s) {
+        uint32_t cin = __shfl_up_sync(FULL, cout, 1, span);
+        const int q = s - sl;       // columns U*q .. U*q + U-1
+        if (mine && q >= 0 && q < NQ) {
+          if (sl == 0) cin = g == 0 ? first : carry_in[q];
+          const uint64_t cs = load_chars<SMEM>(te, U * q);
+          uint64_t pw[U], mw[U];
+          cout = 0;
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const uint64_t eq = eqs[(cs >> (8 * u)) & 0xffu];
+            uint32_t ph = (cin >> (2 * u)) & 1u;
+            uint32_t mh = (cin >> (2 * u + 1)) & 1u;
+            mw[u] = M;
+            qtt::advance_block(eq, qtt::TOPBIT, P, M, ph, mh);
+            pw[u] = P;
+            cout |= (ph | (mh << 1)) << (2 * u);
+          }
+#pragma unroll
+          for (int k = 0; k < U / 2; ++k) {
+            pvi[U / 2 * q + k] = make_ulonglong2(pw[2 * k], pw[2 * k + 1]);
+            mvi[U / 2 * q + k] = make_ulonglong2(mw[2 * k], mw[2 * k + 1]);
+          }
+          if (sl == nvalid - 1 && g + 1 < NG) carry_out[q] = (uint16_t)cout;
+        }
+      }
+      __syncwarp();
+    }
+
+    // greedy backtrace, score-only tie-break D, I, M, X. In the loop
+    // 0 <= v_ovl_rel <= vr < COLS, and a D-run that does not exit the
+    // window stops above v_ovl_rel, so no index needs clamping.
+    if (act && sl == 0) {
+      const int v_ovl_rel = max(pos_v - W * (WS - a.OVL) + 1, 0) - v_min;
+      const int h_ovl_rel = max(pos_h - W * (WS - a.OVL) + 1, 0) - h_min;
+      int vr = pos_v - v_min, hr = pos_h - h_min, sc = 0;
+      // shared addresses of the window (unused in the scratch mode)
+      const unsigned pv_s = SMEM ? qtt::shared_addr(pv) : 0;
+      const unsigned mv_s = SMEM ? qtt::shared_addr(mv) : 0;
+      const unsigned pr_s = SMEM ? qtt::shared_addr(pr) : 0;
+      const unsigned tr_s = SMEM ? qtt::shared_addr(tr) : 0;
+      while (hr >= 0 && vr >= v_ovl_rel && hr >= h_ovl_rel) {
+        const int tp = hr;       // column hr + 1 of the window
+        const int bit = vr & 63;
+        // the column's words, the Mv word and pattern character loaded
+        // ahead on the guess that no D-run moves the cursor
+        const int wo = (vr >> 6) * COLS + tp;
+        uint64_t pw, mw;
+        int pc, tc;
+        if (SMEM) {
+          pw = qtt::lds_u64(pv_s + 8 * wo);
+          mw = qtt::lds_u64(mv_s + 8 * wo);
+          pc = qtt::lds_s32(pr_s + 4 * vr);
+          tc = qtt::lds_s32(tr_s + 4 * tp);
+        } else {
+          pw = pv[wo];
+          mw = mv[wo];
+          pc = pr[vr];
+          tc = tr[tp];
+        }
+        if ((pw >> bit) & 1ull) {
+          // a D-run from the highest zero Pv bit below the cursor
+          uint64_t y = ~pw & qtt::mask_le(bit);
+          int w = vr >> 6;
+          while (!y && w > 0) {
+            --w;
+            y = ~pv[w * COLS + tp];
+          }
+          const int hz = y ? W * w + 63 - __clzll((long long)y) : -1;
+          const int max_run = vr - v_ovl_rel + 1;
+          const int run = min(vr - hz, max_run);
+          sc += run;
+          vr -= run;
+          if (run == max_run) break;   // the window's exit, mid-run
+          mw = mv[(vr >> 6) * COLS + tp];
+          pc = pr[vr];
+        }
+        const bool is_i = (mw >> (vr & 63)) & 1ull;
+        sc += (is_i || pc != tc) ? 1 : 0;
+        vr -= is_i ? 0 : 1;
+        hr -= 1;
+      }
+      hew += sc > a.hew_cells ? 1 : 0;
+      score += sc;
+      pos_v = v_min + vr;
+      pos_h = h_min + hr;
+    }
+    pos_v = __shfl_sync(FULL, pos_v, seg * span);
+    pos_h = __shfl_sync(FULL, pos_h, seg * span);
+    __syncwarp();
   }
-  // boundary fill (bpm_windowed.c:599-627, score-only accounting)
-  if (pos_h >= 0) score += pos_h + 1;
-  if (pos_v >= 0) score += pos_v + 1;
-  score_out[b] = score;
-  hew_out[b] = hew;
+  if (live && sl == 0) {
+    // boundary fill (bpm_windowed.c:599-627, score-only accounting)
+    if (pos_h >= 0) score += pos_h + 1;
+    if (pos_v >= 0) score += pos_v + 1;
+    a.score_out[b] = score;
+    a.hew_out[b] = hew;
+  }
 }
-
-#define QTT_WINDOWED_PARAMS                                                 \
-  const uint64_t *__restrict__ peq, const int32_t *__restrict__ text_enc,  \
-      const int32_t *__restrict__ text_raw,                                \
-      const int32_t *__restrict__ pat_raw,                                 \
-      const int32_t *__restrict__ plen, const int32_t *__restrict__ tlen,  \
-      const int32_t *__restrict__ num_words,                               \
-      uint64_t *__restrict__ pv_after, uint64_t *__restrict__ mv_before,   \
-      int32_t *__restrict__ score_out, int32_t *__restrict__ hew_out,      \
-      int B, int KP, int T, int P, int WS, int OVL, int hew_cells
-#define QTT_WINDOWED_ARGS                                                    \
-  peq, text_enc, text_raw, pat_raw, plen, tlen, num_words, pv_after,        \
-      mv_before, score_out, hew_out, B, KP, T, P, WS, OVL, hew_cells
-
-__global__ void windowed_score_reg(QTT_WINDOWED_PARAMS) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  RegWindow win;
-  windowed_lane(QTT_WINDOWED_ARGS, b, win);
-}
-
-__global__ void windowed_score_scratch(QTT_WINDOWED_PARAMS,
-                                       uint64_t *__restrict__ win_peq,
-                                       uint64_t *__restrict__ win_pv,
-                                       uint64_t *__restrict__ win_mv) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  ScratchWindow win{win_peq + b, win_pv + b, win_mv + b, (size_t)B};
-  windowed_lane(QTT_WINDOWED_ARGS, b, win);
-}
-
-#undef QTT_WINDOWED_PARAMS
-#undef QTT_WINDOWED_ARGS
 
 }  // namespace
 
-// win_peq (ws*5, B), win_pv and win_mv (ws, B): the scratch window, used
-// when ws > 16 (null otherwise).
+// span: lanes per pair (a power of 2, 1..32, at least min(ws, 32));
+// shared_bytes: the CTA's dynamic shared memory, (32 / span) pairs of
+// shared_pair_bytes(ws), or 0 for the scratch mode, where `scratch` holds
+// scratch_pair_bytes(ws) bytes per pair.
 extern "C" int qtt_windowed_score(const void* peq, const void* text_enc,
                                   const void* text_raw, const void* pat_raw,
                                   const void* plen, const void* tlen,
-                                  const void* num_words, void* pv_after,
-                                  void* mv_before, void* score, void* hew,
-                                  void* win_peq, void* win_pv, void* win_mv,
-                                  int B, int KP, int T, int P, int WS,
-                                  int OVL, int hew_cells, void* stream) {
+                                  const void* num_words, void* scratch,
+                                  void* score, void* hew, int B, int KP,
+                                  int T, int P, int WS, int OVL,
+                                  int hew_cells, int span, int shared_bytes,
+                                  void* stream) {
   if (B <= 0) return 0;
-  if (WS < 1 || (WS > MAX_REG_WS && !(win_peq && win_pv && win_mv)))
+  const bool pow2 = span >= 1 && span <= 32 && (span & (span - 1)) == 0;
+  if (WS < 1 || !pow2 || span < (WS < 32 ? WS : 32) || T < W * WS ||
+      P < W * WS)
     return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
+  const int ppw = 32 / span;
+  WindowedArgs a{(const uint64_t*)peq, (const uint8_t*)text_enc,
+                 (const int32_t*)text_raw, (const int32_t*)pat_raw,
+                 (const int32_t*)plen, (const int32_t*)tlen,
+                 (const int32_t*)num_words, (uint8_t*)scratch,
+                 (int32_t*)score, (int32_t*)hew, B, KP, T, P, WS, OVL,
+                 hew_cells, span, 0};
+  const int blocks = (B + ppw - 1) / ppw;
   cudaStream_t s = (cudaStream_t)stream;
-#define QTT_WINDOWED_CAST                                                    \
-  (const uint64_t*)peq, (const int32_t*)text_enc, (const int32_t*)text_raw, \
-      (const int32_t*)pat_raw, (const int32_t*)plen, (const int32_t*)tlen,  \
-      (const int32_t*)num_words, (uint64_t*)pv_after, (uint64_t*)mv_before, \
-      (int32_t*)score, (int32_t*)hew, B, KP, T, P, WS, OVL, hew_cells
-  if (WS <= MAX_REG_WS)
-    windowed_score_reg<<<blocks, threads, 0, s>>>(QTT_WINDOWED_CAST);
-  else
-    windowed_score_scratch<<<blocks, threads, 0, s>>>(
-        QTT_WINDOWED_CAST, (uint64_t*)win_peq, (uint64_t*)win_pv,
-        (uint64_t*)win_mv);
-#undef QTT_WINDOWED_CAST
+  if (shared_bytes > 0) {
+    a.pair_bytes = shared_pair_bytes(WS);
+    if ((size_t)shared_bytes != ppw * a.pair_bytes)
+      return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        windowed_score_kernel<true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (e != cudaSuccess) return (int)e;
+    windowed_score_kernel<true><<<blocks, 32, shared_bytes, s>>>(a);
+  } else {
+    if (!scratch) return (int)cudaErrorInvalidValue;
+    a.pair_bytes = scratch_pair_bytes(WS);
+    windowed_score_kernel<false><<<blocks, 32, 0, s>>>(a);
+  }
   return (int)cudaGetLastError();
+}
+
+// The most dynamic shared memory a CTA of the shared-mode kernel may take
+// on `device`: the card's opt-in limit less the kernel's static PEQ table.
+extern "C" int qtt_windowed_max_shared(int device, int* bytes) {
+  int optin = 0;
+  cudaError_t e = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, windowed_score_kernel<true>);
+  if (e != cudaSuccess) return (int)e;
+  *bytes = optin - (int)fa.sharedSizeBytes;
+  return 0;
 }

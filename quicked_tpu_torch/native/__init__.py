@@ -5,7 +5,8 @@ entries the port and `chip_smoke.py` use: the record expansion of the
 on-device traceback (`expand_colruns`), the CIGAR helpers of `cigar.Cigar`
 (`cigar_score_edit`, `cigar_sprint`, `cigar_check`), and the host C
 cascade that `chip_smoke.py` holds the port to (`quicked_batch`,
-`hirschberg`, `banded_score_batch` through `run_banded_native`).
+`hirschberg`, `banded_score_batch` through `run_banded_native`, and its
+windowed bound `windowed_score`).
 
 `src/quicked_host.c` is a copy of quicked_tpu/native/src/quicked_host.c.
 The shared library is built at first use with the system C compiler into
@@ -145,6 +146,9 @@ def _load():
         lib.qh_hirschberg.argtypes = [
             _u8p, _u8p, _i64, _u8p, _u8p, _i64, _i64, _i64,
             ctypes.c_char_p, _i64p]
+        lib.qh_windowed_score.restype = _i64
+        lib.qh_windowed_score.argtypes = [
+            _u8p, _u8p, _i64, _u8p, _u8p, _i64, _i64, _i64, _i64, _i64p]
         _u16p = ctypes.POINTER(ctypes.c_uint16)
         _i8p = ctypes.POINTER(ctypes.c_int8)
         _i32p = ctypes.POINTER(ctypes.c_int32)
@@ -285,6 +289,26 @@ def banded_score_batch(enc_patterns, enc_texts, cutoffs, tfinishes,
         arr(first), arr(last), arr(sc_rows), rows_stride, arr(ebb))
     return dict(score=scores, pv=pv, mv=mv, first=first, last=last,
                 scores=sc_rows, prolog=prolog.astype(np.int64), ebb=ebb)
+
+
+def windowed_score(pattern_enc: np.ndarray, pattern_raw: bytes,
+                   text_enc: np.ndarray, text_raw: bytes,
+                   window_size: int, overlap_size: int,
+                   hew_threshold: int):
+    """Host-native WindowEd score bound. Returns (score, hew)."""
+    if window_size > 16:
+        raise ValueError(
+            f"native windowed kernel supports window_size <= 16 "
+            f"(got {window_size}); use the device/python path")
+    lib = _load()
+    p = np.ascontiguousarray(pattern_enc, dtype=np.uint8)
+    t = np.ascontiguousarray(text_enc, dtype=np.uint8)
+    hew = ctypes.c_int64()
+    score = int(lib.qh_windowed_score(
+        p.ctypes.data_as(_u8p), _u8bytes(pattern_raw), len(p),
+        t.ctypes.data_as(_u8p), _u8bytes(text_raw), len(t),
+        window_size, overlap_size, hew_threshold, ctypes.byref(hew)))
+    return score, int(hew.value)
 
 
 def run_banded_native(batch):

@@ -28,7 +28,7 @@ W = 64
 _OP_BYTES = np.array([0, ord("M"), ord("D"), ord("I"), ord("X")],
                      dtype=np.uint8)
 
-TRACEBACK = Kernel("qtt_banded_traceback", [P] * 11 + [I, I, I, P])
+TRACEBACK = Kernel("qtt_banded_traceback", [P] * 11 + [I] * 4 + [P])
 
 
 def hsb64(y: torch.Tensor) -> torch.Tensor:
@@ -115,22 +115,29 @@ def traceback_records_torch(mat_pv, mat_mv, praw, traw, plen, tlen,
 def _launch_traceback(mat_pv, mat_mv, praw, traw, plen, tlen, prolog):
     T, EBB, B = mat_pv.shape
     dev = mat_pv.device
+    check_cuda(mat_pv, mat_mv, praw, traw, plen, tlen, prolog)
+    if praw.dtype != torch.uint8 or traw.dtype != torch.uint8 or \
+            traw.shape != (T, B) or praw.shape[1] != B or \
+            mat_mv.shape != mat_pv.shape:
+        raise ValueError("traceback: raw frames must be uint8, traw (T, B), "
+                         "praw (PP, B)")
+    if mat_pv.dtype != torch.int64 or mat_mv.dtype != torch.int64:
+        raise ValueError("traceback: planes must be int64")
+    if any(x.dtype != torch.int32 or x.shape != (B,)
+           for x in (plen, tlen, prolog)):
+        raise ValueError("traceback: plen/tlen/prolog must be (B,) int32")
+    if int(plen.max()) > praw.shape[0] or int(tlen.max()) > T:
+        raise ValueError("traceback: praw/traw shorter than a sequence")
     runs = torch.empty((T, B), dtype=torch.int32, device=dev)
     opcs = torch.empty((T, B), dtype=torch.int8, device=dev)
     v_fin = torch.empty((B,), dtype=torch.int32, device=dev)
     h_fin = torch.empty((B,), dtype=torch.int32, device=dev)
-    args = (mat_pv, mat_mv, praw, traw, plen, tlen, prolog, runs, opcs,
+    # the walk reads each pair's characters pair-major
+    praw_t, traw_t = praw.t().contiguous(), traw.t().contiguous()
+    args = (mat_pv, mat_mv, praw_t, traw_t, plen, tlen, prolog, runs, opcs,
             v_fin, h_fin)
-    check_cuda(*args)
-    if praw.dtype != torch.uint8 or traw.dtype != torch.uint8 or \
-            traw.shape[0] != T or mat_mv.shape != mat_pv.shape:
-        raise ValueError("traceback: raw frames must be uint8, traw (T, B)")
-    if any(x.dtype != torch.int32 for x in (plen, tlen, prolog)):
-        raise ValueError("traceback: plen/tlen/prolog must be int32")
-    if int(plen.max()) > praw.shape[0]:
-        raise ValueError("traceback: praw shorter than a pattern")
     TRACEBACK.launch(*[x.data_ptr() for x in args], B, T, EBB,
-                     stream_ptr(dev))
+                     praw.shape[0], stream_ptr(dev))
     return runs, opcs, v_fin, h_fin
 
 

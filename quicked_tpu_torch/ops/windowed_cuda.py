@@ -12,13 +12,15 @@ numpy helpers copied from windowed_jax.py, which imports jax.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from quicked_tpu_torch import dna
-from quicked_tpu_torch._build import I, P, Kernel
+from quicked_tpu_torch._build import I, P, Kernel, load
 from quicked_tpu_torch.device import check_cuda, resolve_device, stream_ptr
 from quicked_tpu_torch.ops.banded_cuda import advance_block, fuse_u64
 from quicked_tpu_torch.ops.banded_traceback_cuda import (
@@ -27,11 +29,8 @@ from quicked_tpu_torch.ops.batch_prep import pack_peq_batch
 from quicked_tpu_torch.ops.myers_np import div_ceil
 
 W = 64
-# csrc/windowed_score.cu keeps a window of up to 16 blocks in the thread;
-# a wider one goes to a scratch buffer the wrapper allocates
-MAX_REG_WS = 16
 
-WINDOWED = Kernel("qtt_windowed_score", [P] * 14 + [I] * 7 + [P])
+WINDOWED = Kernel("qtt_windowed_score", [P] * 10 + [I] * 9 + [P])
 
 
 @dataclasses.dataclass
@@ -247,30 +246,103 @@ def windowed_scan_torch(st: StagedWindowed, WS: int, OVL: int,
     return score, hew
 
 
+def shared_pair_bytes(ws: int) -> int:
+    """A pair's shared memory in csrc/windowed_score.cu: Pv after and Mv
+    before each of the window's 64*ws columns (ws words each), its raw
+    text and pattern characters (int32) and its encoded text (uint8)."""
+    cols = W * ws
+    return cols * (16 * ws + 9)
+
+
+def scratch_pair_bytes(ws: int) -> int:
+    """A pair's device-memory scratch where its window does not fit in
+    shared memory: the two planes and two carry buffers of 64*ws bytes."""
+    cols = W * ws
+    return cols * (16 * ws + 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowedGeometry:
+    """Launch geometry of the windowed kernel for one batch."""
+
+    span: int             # lanes per pair (a power of 2, >= min(ws, 32))
+    pairs_per_warp: int   # 32 // span; one warp per CTA
+    shared_bytes: int     # the CTA's dynamic shared memory; 0: scratch
+    scratch_bytes: int    # per pair in the scratch mode, else 0
+
+
+def windowed_geometry(ws: int, B: int, sms: int, max_shared: int
+                      ) -> WindowedGeometry:
+    """Pairs per warp and where the window lives on a card of `sms` SMs
+    whose CTAs may take `max_shared` bytes of dynamic shared memory: as
+    many pairs as the segments of next_pow2(ws) lanes (at most 32) and
+    that memory allow, halved while the batch would leave SMs idle; the
+    window in shared memory where one pair's fits, else in the scratch."""
+    seg = min(32, 1 << (ws - 1).bit_length())
+    ppw = 32 // seg
+    per = shared_pair_bytes(ws)
+    fits = per <= max_shared
+    if fits:
+        while ppw * per > max_shared:
+            ppw //= 2
+    while ppw > 1 and -(-B // ppw) < sms:
+        ppw //= 2
+    return WindowedGeometry(span=32 // ppw, pairs_per_warp=ppw,
+                            shared_bytes=ppw * per if fits else 0,
+                            scratch_bytes=0 if fits else
+                            scratch_pair_bytes(ws))
+
+
+@functools.cache
+def max_shared_bytes(device_index: int) -> int:
+    """The dynamic shared memory a CTA of the kernel may take on the
+    card: its opt-in limit less the kernel's static PEQ table."""
+    out = ctypes.c_int()
+    fn = load().qtt_windowed_max_shared
+    fn.argtypes, fn.restype = [I, ctypes.POINTER(ctypes.c_int)], I
+    err = fn(device_index, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"qtt_windowed_max_shared: CUDA error {err}")
+    return out.value
+
+
 def _launch_windowed(st: StagedWindowed, WS: int, OVL: int,
                      hew_cells: int):
     if WS < 1:
         raise ValueError(f"window_size {WS}: must be at least 1")
-    dev = st.peq.device
-    KP, _, B = st.peq.shape
+    KP, five, B = st.peq.shape
     T, P_ = st.text_enc.shape[0], st.pat_raw.shape[0]
     if T < W * WS or P_ < W * WS:
         raise ValueError("windowed batch shorter than one window")
-    COLS = W * WS
-    pv_after = torch.empty((COLS, WS, B), dtype=torch.int64, device=dev)
-    mv_before = torch.empty_like(pv_after)
+    lanes = (st.plen, st.tlen, st.num_words)
+    check_cuda(st.peq, st.text_enc, st.text_raw, st.pat_raw, *lanes)
+    if st.peq.dtype != torch.int64 or five != 5 or any(
+            x.dtype != torch.int32 for x in
+            (st.text_enc, st.text_raw, st.pat_raw, *lanes)):
+        raise ValueError("windowed: peq (KP, 5, B) int64, the rest int32")
+    if st.text_raw.shape != (T, B) or st.text_enc.shape != (T, B) or \
+            st.pat_raw.shape != (P_, B) or any(x.shape != (B,)
+                                               for x in lanes):
+        raise ValueError("windowed: text (T, B), pattern (P, B), lanes (B,)")
+    dev = st.peq.device
+    geo = windowed_geometry(
+        WS, B, torch.cuda.get_device_properties(dev).multi_processor_count,
+        max_shared_bytes(dev.index))
+    # the kernel reads pair-major copies of the lane-minor staged batch
+    peq = st.peq.permute(2, 0, 1).contiguous()
+    text_enc = st.text_enc.t().to(torch.uint8).contiguous()
+    text_raw = st.text_raw.t().contiguous()
+    pat_raw = st.pat_raw.t().contiguous()
+    scratch = (torch.empty((B, geo.scratch_bytes), dtype=torch.uint8,
+                           device=dev) if geo.scratch_bytes else None)
     score = torch.empty((B,), dtype=torch.int32, device=dev)
     hew = torch.empty_like(score)
-    args = [st.peq, st.text_enc, st.text_raw, st.pat_raw, st.plen, st.tlen,
-            st.num_words, pv_after, mv_before, score, hew]
-    if WS > MAX_REG_WS:     # the window words of a lane, lane-minor
-        args += [torch.empty((WS * 5, B), dtype=torch.int64, device=dev),
-                 torch.empty((WS, B), dtype=torch.int64, device=dev),
-                 torch.empty((WS, B), dtype=torch.int64, device=dev)]
-    check_cuda(*args)
-    ptrs = [x.data_ptr() for x in args] + [None] * (14 - len(args))
-    WINDOWED.launch(*ptrs, B, KP, T, P_, WS, OVL, hew_cells,
-                    stream_ptr(dev))
+    WINDOWED.launch(
+        peq.data_ptr(), text_enc.data_ptr(), text_raw.data_ptr(),
+        pat_raw.data_ptr(), *(x.data_ptr() for x in lanes),
+        None if scratch is None else scratch.data_ptr(), score.data_ptr(),
+        hew.data_ptr(), B, KP, T, P_, WS, OVL, hew_cells, geo.span,
+        geo.shared_bytes, stream_ptr(dev))
     return score.long(), hew.long()
 
 

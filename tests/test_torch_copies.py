@@ -164,10 +164,28 @@ def check_native():
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
+def check_native_windowed():
+    """The host C windowed bound through the port's loader and the JAX
+    package's: ws 2 and 9 over pairs with large indels (HEWs > 0)."""
+    if not (native.available() and jax_native.available()):
+        pytest.skip("no C compiler for the host C runtime")
+    pairs = list(generate.generate_pairs(6, 1500, error=0.15, seed=13,
+                                         indels_num=2, indels_length=150))
+    hews = 0
+    for ws in (2, 9):
+        for p, t in pairs:
+            args = (dna.encode(p), p.encode(), dna.encode(t), t.encode(),
+                    ws, 1, 40)
+            got = native.windowed_score(*args)
+            assert got == jax_native.windowed_score(*args), (ws, p[:20])
+            hews += got[1]
+    assert hews > 0
+
+
 CASES = {f.__name__[len("check_"):]: f for f in (
     check_generate, check_prepare_banded_batch, check_band_geometry,
     check_hirschberg_split_fast, check_cigar, check_align_one_np,
-    check_native)}
+    check_native, check_native_windowed)}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

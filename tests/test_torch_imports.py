@@ -81,6 +81,89 @@ def test_torch_kernel_wrappers_refuse_cpu_tensors():
     assert bc.FILL.launches == 0
 
 
+def test_torch_kernel_ab_loads_the_other_checkout(tmp_path):
+    """kernel_ab.load_other imports another checkout's windowed and
+    traceback wrappers under the port's name, with their own modules, and
+    puts this checkout's modules back."""
+    import shutil
+
+    from quicked_tpu_torch import kernel_ab
+
+    shutil.copytree(os.path.join(ROOT, "quicked_tpu_torch"),
+                    tmp_path / "quicked_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+
+    def ours():
+        return {k: v for k, v in sys.modules.items()
+                if k.split(".")[0] == "quicked_tpu_torch"}
+
+    before = ours()
+    windowed, traceback = kernel_ab.load_other(str(tmp_path))
+    assert ours() == before
+    for fn in (windowed, traceback):
+        assert fn.__globals__["__file__"].startswith(str(tmp_path))
+    assert windowed.__globals__["WINDOWED"] is not wc.WINDOWED
+    b = wc.prepare_windowed_batch(["ACGTACGTTA"], ["ACGTTCGTA"],
+                                  window_size=2)
+    got = windowed(wc.stage_windowed(b, "cpu"), 2, 1, 0)
+    want = wc.windowed_score_staged(wc.stage_windowed(b, "cpu"), 2, 1, 0)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def tb_args(pats, txts, cutoff):
+    """(the plain runs, then the traceback's inputs) of a full fill of
+    the pairs on the host."""
+    b = prepare_banded_batch(pats, txts, [cutoff] * len(pats), full=True)
+    st = bc.stage_banded(b, "cpu")
+    out = bc.banded_scan_torch(st)
+    praw, traw = btc.prep_raw_frames([p.encode() for p in pats],
+                                     [t.encode() for t in txts],
+                                     out["mat_pv"].shape[0],
+                                     max(map(len, pats)))
+    lane = st.lanes["prolog"]
+    runs = btc.traceback_records_torch(
+        out["mat_pv"], out["mat_mv"], torch.from_numpy(praw),
+        torch.from_numpy(traw), lane.new_tensor([len(p) for p in pats]),
+        lane.new_tensor([len(t) for t in txts]), lane)[0]
+    return (runs, out["mat_pv"], out["mat_mv"], torch.from_numpy(praw),
+            torch.from_numpy(traw), lane.new_tensor([len(p) for p in pats]),
+            lane.new_tensor([len(t) for t in txts]), lane)
+
+
+def synthetic_planes(EBB, T, B, seed, ones=0.93):
+    """(runs, then the traceback's inputs) over random planes: Pv bits
+    one at the rate `ones` (long D-runs), random Mv, characters, band
+    offsets and lengths (a pattern of the band's full depth, a text of T
+    columns, an empty text). The walk is defined on any planes, so this
+    reaches depths the fill's geometry never gives (EBB 1)."""
+    rng = np.random.default_rng(seed)
+    bits = rng.random((T, EBB, B, 64)) < ones
+    pv = torch.from_numpy((bits * (1 << np.arange(64, dtype=np.uint64)))
+                          .sum(-1).astype(np.uint64).view(np.int64))
+    mv = torch.from_numpy(rng.integers(0, 2**63, (T, EBB, B),
+                                       dtype=np.int64))
+    PP = EBB * 64 + 100
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    praw = torch.from_numpy(rng.choice(acgt, (PP, B)))
+    traw = torch.from_numpy(rng.choice(acgt, (T, B)))
+    plen = torch.tensor(rng.integers(0, PP + 1, B), dtype=torch.int32)
+    tlen = torch.tensor(rng.integers(0, T + 1, B), dtype=torch.int32)
+    plen[0], tlen[1], tlen[-1] = PP, T, 0
+    prolog = torch.tensor(rng.integers(0, min(EBB, 3) + 1, B),
+                          dtype=torch.int32)
+    args = (pv, mv, praw, traw, plen, tlen, prolog)
+    return (btc.traceback_records_torch(*args)[0],) + args
+
+
+def test_torch_synthetic_planes_walk_deep_runs():
+    """The synthetic planes of the card test give D-runs that cross
+    words, and finish walks both by the pattern and by the text."""
+    runs, *args = synthetic_planes(4, 120, 5, seed=2, ones=0.99)
+    assert int(runs.max()) > 64
+    _, _, v_fin, h_fin = btc.traceback_records_torch(*args)
+    assert (v_fin < 0).any() and (h_fin < 0).any()
+
+
 @pytest.mark.cuda
 def test_torch_kernels_match_plain_on_card():
     """Each CUDA kernel against its plain version on the same CUDA
@@ -142,13 +225,44 @@ def test_torch_kernels_match_plain_on_card():
     for a, b in zip(btc.traceback_records(*args),
                     btc.traceback_records_torch(*args)):
         assert torch.equal(a, b)
-    for ws in (2, 9, 20):
-        stw = wc.stage_windowed(
-            wc.prepare_windowed_batch(pats, txts, window_size=ws), "cuda")
-        got = wc.windowed_score_staged(stw, ws, 1, 204)
-        want = wc.windowed_scan_torch(stw, ws, 1, 204)
-        np.testing.assert_array_equal(got[0].cpu(), want[0].cpu())
-        np.testing.assert_array_equal(got[1].cpu(), want[1].cpu())
+    # the traceback at B = 1, on a D-run of 500 rows (eight words, past
+    # the staged window), at EBB 1, 128 and 7300 (D-runs reaching band
+    # words far below the cursor)
+    rng = np.random.default_rng(5)
+    s = "".join(rng.choice(list("ACGT"), 1400))
+    z = "".join(rng.choice(list("ACGT"), 500))
+    cases = [tb_args([pats[0]], [txts[0]], 45),
+             tb_args([s + z], [s], 600)]
+    cases += [synthetic_planes(ebb, 200, 5, seed=ebb, ones=o)
+              for ebb in (1, 128) for o in (0.93, 0.99)]
+    cases.append(synthetic_planes(7300, 64, 2, seed=3))
+    assert int(cases[1][0].max()) == 500
+    for host in cases:
+        tb = btc.traceback_records(*(x.cuda() for x in host[1:]))
+        for a, b in zip(tb, btc.traceback_records_torch(*host[1:])):
+            assert torch.equal(a.cpu(), b)
+
+    # the windowed bound at ws 1 (ovl 0), 2 and 9, at the shared/scratch
+    # cutover (ws 14, 15), at 20 and past one warp (33); batches of 1, 17
+    # and more than 132 pairs (1, 4 and 32 pairs per warp); the plain
+    # version on a host copy
+    small = list(generate.generate_pairs(140, 150, error=0.1, seed=4))
+    tiny = list(generate.generate_pairs(4300, 90, error=0.1, seed=6))
+    wcases = [(ws, 1, pats, txts) for ws in (2, 9, 14, 15, 20, 33)]
+    wcases += [(1, 0, pats, txts), (9, 1, pats[:1], txts[:1]),
+               (2, 1, [p for p, _ in small[:17]], [t for _, t in small[:17]]),
+               (2, 1, [p for p, _ in small], [t for _, t in small]),
+               (2, 1, [p for p, _ in small] * 5, [t for _, t in small] * 5),
+               (1, 0, [p for p, _ in tiny], [t for _, t in tiny])]
+    for ws, ovl, wp, wt in wcases:
+        b = wc.prepare_windowed_batch(wp, wt, window_size=ws)
+        cells = wc.hew_cell_threshold(ws, ovl, 40)
+        got = wc.windowed_score_staged(wc.stage_windowed(b, "cuda"), ws, ovl,
+                                       cells)
+        want = wc.windowed_scan_torch(wc.stage_windowed(b, "cpu"), ws, ovl,
+                                      cells)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), (ws, len(wp))
 
     # deep-band passes: carry-scan (all keys) and systolic (ABORT flags,
     # then scores/first/last and pv/mv on [first, last] of the others);

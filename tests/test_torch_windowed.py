@@ -89,7 +89,7 @@ def test_torch_windowed_short_pairs():
 
 def test_torch_windowed_rejects_wide_windows():
     """The CUDA wrapper refuses a window size below 1 before it launches
-    anything. A wide window (ws > 16, held in a scratch buffer on the
+    anything. A wide window (ws >= 15, held in a scratch buffer on the
     card) passes that check and stops only at the device check here."""
     tb = wc.prepare_windowed_batch(["ACGT"], ["ACGT"], window_size=17)
     st = wc.stage_windowed(tb, "cpu")
@@ -115,3 +115,58 @@ def test_torch_windowed_ws20_matches_jax():
     got = cascade.windowed_score_batch(pats, txts, 40, 20, 1, device="cpu")
     np.testing.assert_array_equal(np.asarray(want[0]), got[0])
     np.testing.assert_array_equal(np.asarray(want[1]), got[1])
+
+
+@pytest.mark.parametrize("ws", [2, 9])
+def test_torch_windowed_batch_matches_host_c(ws):
+    """The port's bucketed windowed bound (the plain version on the CPU)
+    equals the host C qh_windowed_score pair by pair."""
+    from quicked_tpu_torch import dna, native
+    from quicked_tpu_torch.aligner import cascade
+
+    if not native.available():
+        pytest.skip("no C compiler for the host C runtime")
+    pairs = _pairs(3, 800, 0.15, 23, indels_num=2, indels_length=90) + \
+        _pairs(2, 200, 0.1, 24, 1.3) + [("ACGTTAGC" * 3, "ACGTAGC" * 2)]
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    got = cascade.windowed_score_batch(pats, txts, 40, ws, 1, device="cpu")
+    for i, (p, t) in enumerate(pairs):
+        want = native.windowed_score(dna.encode(p), p.encode(),
+                                     dna.encode(t), t.encode(), ws, 1, 40)
+        assert (int(got[0][i]), int(got[1][i])) == want, i
+
+
+def test_torch_windowed_geometry():
+    """The windowed kernel's launch geometry for ws 1..40 on the H100
+    (132 SMs; 232,448 bytes of shared memory a CTA, 1,280 of them the
+    kernel's static PEQ table): segments of next_pow2(ws) lanes (at most
+    32), the CTA's shared memory within that limit, the scratch taken
+    exactly where one pair's window does not fit, and the packing
+    narrowed until a batch of enough pairs spans the SMs."""
+    sms, dyn = 132, 232_448 - 1280
+    for ws in range(1, 41):
+        fits = wc.shared_pair_bytes(ws) <= dyn
+        assert fits == (ws <= 14), ws
+        for B in (1, 17, 140, 1000, 5000):
+            g = wc.windowed_geometry(ws, B, sms, dyn)
+            assert g.span * g.pairs_per_warp == 32
+            assert g.span >= min(ws, 32)
+            assert g.span & (g.span - 1) == 0
+            assert g.shared_bytes + 1280 <= 232_448
+            if fits:
+                assert g.shared_bytes == \
+                    g.pairs_per_warp * wc.shared_pair_bytes(ws)
+                assert g.scratch_bytes == 0
+            else:
+                assert g.shared_bytes == 0
+                assert g.scratch_bytes == wc.scratch_pair_bytes(ws)
+            warps = -(-B // g.pairs_per_warp)
+            assert g.pairs_per_warp == 1 or warps >= sms, (ws, B)
+            if B >= sms * 32 and fits:
+                # the widest packing shared memory allows
+                assert 2 * g.shared_bytes > dyn or \
+                    g.span == min(32, 1 << (ws - 1).bit_length()), (ws, B)
+    assert wc.windowed_geometry(2, 5000, sms, dyn).pairs_per_warp == 16
+    assert wc.windowed_geometry(9, 1000, sms, dyn).pairs_per_warp == 2
+    assert wc.windowed_geometry(9, 100, sms, dyn).pairs_per_warp == 1

@@ -7,9 +7,10 @@
 Run from the repository root. It builds the port's CUDA kernels from
 `quicked_tpu_torch/csrc/`, then:
 
-  phase 1  names the card (nvidia-smi name and power limit), times the
-           kernel build and prints the register report of the fill,
-           windowed and traceback kernels (`nvcc -Xptxas -v`; any spill
+  phase 1  names the card (nvidia-smi name and power limit) and its SM
+           clock, times the kernel build and prints the register report
+           of every instantiation of the fill, windowed, traceback,
+           systolic and carry-scan kernels (`nvcc -Xptxas -v`; any spill
            fails), and builds (or loads)
            the port's host C library, the oracle and the record
            expansion;
@@ -65,11 +66,16 @@ Run from the repository root. It builds the port's CUDA kernels from
            against the host C banded kernel;
   recorded both slices aligned once more, untimed, while `Recorder`
            keeps what they hand the windowed kernel (stage 1, stage 2
-           forward and reverse) and the traceback (the 10 kbp run's
-           largest chunk, the long-read run's first): every windowed pair
-           against the host C windowed bound (`native.windowed_score`),
-           each batch timed with its bound; each chunk held to the plain
-           version on two lanes of a host copy, timed with its bound;
+           forward and reverse), the traceback (the 10 kbp run's
+           largest chunk, the long-read run's first) and the deep-band
+           kernels (the long-read run's stage 3 and split level 1): every
+           windowed pair against the host C windowed bound
+           (`native.windowed_score`), each batch timed with its bound;
+           each chunk held to the plain version on two lanes of a host
+           copy, timed with its bound; each deep-band batch staged anew
+           and timed with its bound, its ABORT lanes in the run and its
+           cycles a step, the stage-3 systolic batch held to the plain
+           version on its first and last lanes of a host copy;
   phase 4  aligns the phase-3 and the long-read pairs again under
            `torch.profiler` and prints the device time of each kernel and
            copy and the card's busy share of the wall.
@@ -78,8 +84,8 @@ The line before the last is a JSON object with one entry per kernel,
 with its bound: the larger of the bytes its function must move over
 3.35 TB/s and its operations over the card's int32 rate (Myers advances
 at OPS_PER_ADVANCE each). `quicked_tpu_torch.kernel_ab` times another
-checkout's windowed and traceback kernels against this one's at the
-recorded shapes. The last line is {"ok": true, "device":
+checkout's windowed, traceback and deep-band kernels against this one's
+at the recorded shapes. The last line is {"ok": true, "device":
 {...}}. Any failure exits non-zero without that line. No CUDA card, or no repository around the script,
 also exits non-zero.
 """
@@ -124,6 +130,8 @@ DEEP_STRIPES = {100_000: ((1537, 1664), ("score", "full")),
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_ADVANCE = 30
+# the card's maximum SM clock in MHz, read by nvidia-smi in phase 1
+MAX_SM_MHZ = None
 
 
 # the TPU kernel (or XLA program) each CUDA kernel replaces
@@ -197,14 +205,21 @@ REPORTED = {
     "windowed_score.cu": (
         (r"windowed_score_kernelILb(\d)E", "shared={0}"),),
     "banded_traceback.cu": ((r"banded_traceback_kernel", "warp per pair"),),
+    "banded_sysband.cu": (
+        (r"banded_sysband_kernelILi(\d+)ELi(\d)E",
+         "rows_per_thread={0} words={1} (0 registers, 1 shared, 2 device)"),),
+    "banded_cscan.cu": (
+        (r"banded_cscan_kernelILi(\d+)ELb(\d)E", "S={0} several_warps={1}"),
+        (r"banded_cscan_rounds_kernel", "rounds")),
 }
 
 
 def register_check(_build):
-    """Print the register report of the fill, windowed and traceback
-    kernels, one line per instantiation; fail on any spill."""
+    """Print the register report of every kernel in REPORTED, one line per
+    instantiation; fail on any spill."""
     import re
 
+    spills = []
     for src, kinds in REPORTED.items():
         name, seen = None, 0
         for line in _build.register_report(src).splitlines():
@@ -219,9 +234,10 @@ def register_check(_build):
                 print(f"[phase 1] {src[:-3]} {name}: {text}")
                 sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                                r"spill loads", line)
-                check(not sp or sp.group(1) == sp.group(2) == "0",
-                      f"{src[:-3]} {name} spills: {text}")
+                if sp and not sp.group(1) == sp.group(2) == "0":
+                    spills.append(f"{src[:-3]} {name} spills: {text}")
         check(seen > 0, f"no register report for {src}")
+    check(not spills, "; ".join(spills))
 
 
 def max_abs_err(a, b):
@@ -579,7 +595,9 @@ def phase2_deepband(gen, torch, pool):
         ms = cuda_ms(lambda: sb.sysband_raw(st), 5)
         res[f"sysband_{name}"] = dict(ms=ms)
         print(f"[phase 2] sysband_{name}: B={st.B} EBB={st.EBB} NB={st.NB} "
-              f"NS={sb.geometry(st.EBB)[0]}, kernel {ms:.3f} ms")
+              f"NS={sb.geometry(st.EBB)[0]}, "
+              f"{int(sb.sysband_raw(st)[1].sum())} ABORT lanes, kernel "
+              f"{ms:.3f} ms")
         sysband_plain_check(pool, f"sysband_{name}", sb.sysband_raw(st),
                             bc.stage_banded(b, "cpu"), res[f"sysband_{name}"])
 
@@ -817,13 +835,14 @@ def deep_plain_check(name, st, b, lanes, torch, pool, cscan_plain=True):
     host = bc.select_lanes(bc.stage_banded(b, "cpu"), idx)
     sel = bc.select_lanes(st, idx.cuda())
     sys_ms = cuda_ms(lambda: sb.sysband_raw(sel), 3)
+    n_abort = int(sb.sysband_raw(sel)[1].sum())
     entry = dict(ms=sys_ms)
     entry.update(zip(("bound_ms", "bound_by"), banded_bound(sel)))
     res = {f"sysband_{name}": entry}
     sysband_plain_check(pool, f"sysband_{name}", sb.sysband_raw(sel), host,
                         entry)
     msg = (f"[phase 2] {name}, lanes {lanes} to the plain versions: sysband "
-           f"{sys_ms:.3f} ms")
+           f"{sys_ms:.3f} ms ({n_abort} ABORT lanes)")
     if cscan_plain:
         cs_ms = cuda_ms(lambda: cc.cscan_staged(sel), 3)
         res[f"cscan_{name}"] = dict(ms=cs_ms)
@@ -859,10 +878,13 @@ def phase2_fulldepth(long_pairs, torch, pool):
     fill_ms = cuda_ms(lambda: bc.fill_staged(st), 2)
     sys_ms = cuda_ms(lambda: sb.sysband_staged(st), 3)
     cs_ms = cuda_ms(lambda: cc.cscan_staged(st), 3)
+    NS = sb.geometry(st.EBB)[0]
+    steps = sb.total_steps(st.NB, NS)
     print(f"[phase 2] full depth: B={st.B} EBB={st.EBB} NB={st.NB} "
-          f"NS={sb.geometry(st.EBB)[0]}: systolic (aborts {aborts}) and "
+          f"NS={NS}: systolic (aborts {aborts}) and "
           f"carry-scan equal to the fill kernel; fill {fill_ms:.3f} ms, "
-          f"sysband {sys_ms:.3f} ms, cscan {cs_ms:.3f} ms")
+          f"sysband {sys_ms:.3f} ms ({per_step(sys_ms, steps)}), "
+          f"cscan {cs_ms:.3f} ms ({per_step(cs_ms, st.NB * 64)})")
     res = dict(fulldepth_sysband=dict(err=err_sys, ms=sys_ms),
                fulldepth_cscan=dict(err=err_cs, ms=cs_ms),
                fulldepth_fill=dict(ms=fill_ms))
@@ -989,8 +1011,9 @@ def phase2_banded(gen, torch, pool):
     ms = cuda_ms(lambda: cc.cscan_staged(st), 5)
     b_ms, b_by = banded_bound(st)
     entry = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
-    print(f"[phase 2] cscan_banded: B={st.B} EBB={st.EBB} NB={st.NB}, kernel "
-          f"{ms:.3f} ms (bound {b_ms:.3f} ms, {b_by})")
+    print(f"[phase 2] cscan_banded: B={st.B} EBB={st.EBB} NB={st.NB} "
+          f"({cc.cscan_launch(st.EBB)}), kernel {ms:.3f} ms (bound "
+          f"{b_ms:.4f} ms, {b_by}), {per_step(ms, st.NB * 64)}")
     plain_check(pool, "cscan_banded", host_tensors(cc.cscan_staged(st)),
                 cc.banded_cscan_torch, (bc.stage_banded(b, "cpu"),), entry)
     return dict(cscan_banded=entry)
@@ -1072,22 +1095,30 @@ def windowed_bound(st, ws, ovl):
 
 
 class Recorder:
-    """While active, records what the main path hands the windowed and
-    traceback kernels: every windowed batch with its outputs (by wrapping
-    `windowed_cuda.windowed_score_staged`), and the traceback inputs and
-    outputs of the first chunk, or of the largest (by wrapping
-    `banded_traceback_cuda.traceback_records`)."""
+    """While active, records what the main path hands the windowed,
+    traceback and deep-band kernels: every windowed batch with its outputs
+    (by wrapping `windowed_cuda.windowed_score_staged`), the traceback
+    inputs and outputs of the first chunk, or of the largest (by wrapping
+    `banded_traceback_cuda.traceback_records`), and every score batch the
+    route sends to the systolic or carry-scan kernel, as its host
+    `BandedBatch` with the family and the lanes the systolic pass aborted
+    (by wrapping the aligner's `stage_banded` and `score_staged`)."""
 
     def __init__(self, largest_chunk):
         self.largest = largest_chunk
         self.windowed = []
         self.chunk = None
+        self.deep = []          # (BandedBatch, family, ABORT lanes)
 
     def __enter__(self):
+        from quicked_tpu_torch.aligner import batch as qb
+        from quicked_tpu_torch.ops import banded_sysband_cuda as sb
         from quicked_tpu_torch.ops import banded_traceback_cuda as btc
         from quicked_tpu_torch.ops import windowed_cuda as wc
 
-        self.real = wc.windowed_score_staged, btc.traceback_records
+        self.real = (wc.windowed_score_staged, btc.traceback_records,
+                     qb.stage_banded, qb.score_staged)
+        last = [None, None]     # the staged batch and its host batch
 
         def windowed(st, WS, OVL, cells):
             out = self.real[0](st, WS, OVL, cells)
@@ -1102,24 +1133,40 @@ class Recorder:
                 self.chunk = (args, out)
             return out
 
+        def stage(batch, dev):
+            last[:] = [self.real[2](batch, dev), batch]
+            return last[0]
+
+        def score(st, family):
+            before = sb.SYSBAND.fallbacks
+            out = self.real[3](st, family)
+            if family != "fill" and st is last[0]:
+                self.deep.append((last[1], family,
+                                  sb.SYSBAND.fallbacks - before))
+            return out
+
         wc.windowed_score_staged, btc.traceback_records = windowed, traceback
+        qb.stage_banded, qb.score_staged = stage, score
         return self
 
     def __exit__(self, *exc):
+        from quicked_tpu_torch.aligner import batch as qb
         from quicked_tpu_torch.ops import banded_traceback_cuda as btc
         from quicked_tpu_torch.ops import windowed_cuda as wc
 
-        wc.windowed_score_staged, btc.traceback_records = self.real
+        (wc.windowed_score_staged, btc.traceback_records, qb.stage_banded,
+         qb.score_staged) = self.real
 
 
-def record_run(pairs, largest_chunk):
-    """A `Recorder` over one more run of `pairs` through the aligner, so
-    that the timed runs go without the memory it holds on the card."""
+def record_run(pairs, largest_chunk, params=None):
+    """A `Recorder` over one more run of `pairs` through the aligner (with
+    `params`, default QuickedParams()), so that the timed runs go without
+    the memory it holds on the card."""
     from quicked_tpu_torch.api import BatchAligner
     from quicked_tpu_torch.params import QuickedParams
 
     with Recorder(largest_chunk) as rec:
-        BatchAligner(QuickedParams(), device="cuda").align(pairs)
+        BatchAligner(params or QuickedParams(), device="cuda").align(pairs)
     return rec
 
 
@@ -1207,6 +1254,62 @@ def check_recorded(tag, rec, torch, pool, plain=False):
     host = tuple(x[..., idx].cpu() for x in args)
     res.update(traceback_check(f"traceback_{tag}", args, host, torch, pool,
                                lanes=lanes, phase="recorded"))
+    return res
+
+
+def per_step(ms, steps):
+    """A launch's time per dependent step (a systolic step, a carry-scan
+    column): microseconds and cycles at the card's maximum SM clock."""
+    us = ms * 1e3 / steps
+    cyc = f", {us * MAX_SM_MHZ:.0f} cycles" if MAX_SM_MHZ else ""
+    return f"{us:.4f} us a step over {steps} steps{cyc}"
+
+
+def check_deep(tag, rec, torch, pool, stage3=False):
+    """Every deep-band batch one slice's run handed the systolic or
+    carry-scan kernel (recorded by `Recorder`), staged anew: each timed
+    with its bound, with its ABORT lanes in that run; with `stage3`, the
+    first batch must be systolic (stage 3) and is held to the plain version
+    on its first and last lanes, on a host copy."""
+    from quicked_tpu_torch.ops import banded_cscan_cuda as cc
+    from quicked_tpu_torch.ops import banded_cuda as bc
+    from quicked_tpu_torch.ops import banded_sysband_cuda as sb
+
+    res, seen = {}, {}
+    if stage3:
+        check(rec.deep and rec.deep[0][1] == "sysband",
+              f"{tag}: stage 3 sent no batch to the systolic kernel")
+    for b, family, aborts in rec.deep:
+        seen[family] = seen.get(family, 0) + 1
+        name = f"{family}_{tag}_{seen[family]}"
+        st = bc.stage_banded(b, "cuda")
+        if family == "sysband":
+            geo = sb.sysband_launch(st.EBB)
+            steps = sb.total_steps(st.NB, geo.NS)
+            fn = lambda: sb.sysband_raw(st)
+            how = (f"NS={geo.NS}, {geo.rows_per_thread} rows a thread, "
+                   f"words in {geo.words}")
+        else:
+            geo = cc.cscan_launch(st.EBB)
+            steps = st.NB * 64
+            fn = lambda: cc.cscan_staged(st)
+            how = f"S={geo.S}, {geo.threads} threads, {geo.rounds} round(s)"
+        ms = cuda_ms(fn, 3)
+        b_ms, b_by = banded_bound(st)
+        entry = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+        msg = ""
+        if stage3 and seen[family] == 1 and family == "sysband":
+            lanes = sorted({0, st.B - 1})
+            idx = torch.tensor(lanes)
+            sysband_plain_check(
+                pool, name, sb.sysband_raw(bc.select_lanes(st, idx.cuda())),
+                bc.select_lanes(bc.stage_banded(b, "cpu"), idx), entry)
+            msg = f"; lanes {lanes} to the plain version"
+        res[name] = entry
+        print(f"[recorded] {name}: B={st.B} EBB={st.EBB} NB={st.NB} ({how}), "
+              f"{aborts} ABORT lanes in the run{msg}; kernel {ms:.3f} ms "
+              f"(bound {b_ms:.4f} ms, {b_by}), {per_step(ms, steps)}")
+        del st
     return res
 
 
@@ -1405,6 +1508,7 @@ def main(argv=None) -> int:
     ap.add_argument("--long-pairs", type=int, default=100)
     ap.add_argument("--long-length", type=int, default=100_000)
     args = ap.parse_args(argv)
+    global MAX_SM_MHZ
 
     import torch
 
@@ -1430,6 +1534,13 @@ def main(argv=None) -> int:
             timeout=60)
         print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
               else "nvidia-smi: no output")
+        clk = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout.strip().splitlines()
+        if clk:
+            MAX_SM_MHZ = float(clk[0].split(",")[1])
+            print(f"[phase 1] SM clock now, max (MHz): {clk[0]}")
         nvcc = subprocess.run([_build._nvcc(), "--version"],
                               capture_output=True, text=True, timeout=60)
         print(f"[phase 1] {torch.cuda.get_device_name(0)}, "
@@ -1470,8 +1581,10 @@ def main(argv=None) -> int:
         long_launches, banded_launches = phase5(generate, long_pairs, torch)
         p2.update(check_recorded("10kbp", record_run(pairs, True), torch,
                                  pool, plain=True))
-        p2.update(check_recorded("long", record_run(long_pairs, False),
-                                 torch, pool))
+        rec = record_run(long_pairs, False)
+        p2.update(check_recorded("long", rec, torch, pool))
+        p2.update(check_deep("long", rec, torch, pool, stage3=True))
+        del rec
         pool.drain()
         phase4([("10 kbp slice", pairs), ("long-read slice", long_pairs)],
                torch)
@@ -1510,7 +1623,7 @@ def main(argv=None) -> int:
         row("banded_cscan", banded_launches["banded_cscan"],
             ("cscan_", "fulldepth_cscan"), "cscan_banded"),
         row("banded_sysband", long_launches["banded_sysband"],
-            ("sysband_", "fulldepth_sysband"), "sysband_level1"),
+            ("sysband_", "fulldepth_sysband"), "sysband_long_1"),
         row("hirschberg_split", long_launches["hirschberg_split"],
             ("hsplit",), "hsplit_fused1"),
     ]

@@ -69,9 +69,11 @@ namespace {
 using qtt::apply;
 using qtt::compose;
 using qtt::M_ST;
+using qtt::m_in;
 using qtt::mk;
 using qtt::out_state;
 using qtt::P_ST;
+using qtt::pick;
 using qtt::W;
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
@@ -85,35 +87,6 @@ constexpr int MAX_RESIDENT = 32 * MULTI_S * MAX_WARPS;
 // tpp threads (plus one sentinel each) and its EBB+1 window scores.
 __host__ __device__ inline int region_words(int tpp, int EBB) {
   return 2 * (tpp + 1) + (EBB + 2) / 2;
-}
-
-__device__ __forceinline__ uint64_t pick(const uint64_t (&e)[5], int c) {
-  uint64_t r = e[4];
-  r = c == 3 ? e[3] : r;
-  r = c == 2 ? e[2] : r;
-  r = c == 1 ? e[1] : r;
-  return c == 0 ? e[0] : r;
-}
-
-// Whether the carry into stripe `lane` is M. A stripe's map (a, b) sends
-// "the carry-in is M" to "the carry-out is M" by a constant (a and b both
-// M or both not: R, with the constant in V), the identity, or the
-// negation (a is M, b is not: N). So the carry into a stripe is the
-// constant of the nearest constant stripe below it, or `m0` (the carry
-// into the warp) if there is none, flipped once per negating stripe in
-// between.
-__device__ __forceinline__ int m_in(unsigned R, unsigned V, unsigned N,
-                                    int lane, int m0) {
-  const unsigned below = (1u << lane) - 1u;
-  const unsigned r = R & below;
-  int base = m0;
-  unsigned span = below;
-  if (r) {
-    const int j = 31 - __clz(r);
-    base = (V >> j) & 1;
-    span = below & ~((2u << j) - 1u);
-  }
-  return base ^ (__popc(N & span) & 1);
 }
 
 template <int S, bool MULTI, bool FULL>

@@ -41,19 +41,9 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int K = 64;       // columns a staged chunk covers
 constexpr int NWIN = 8;     // band words staged per column and plane
 
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using qtt::cp_async8;
+using qtt::cp_async_commit;
+using qtt::cp_async_wait;
 
 struct TracebackArgs {
   const uint64_t *mat_pv, *mat_mv;       // (T, EBB, B)

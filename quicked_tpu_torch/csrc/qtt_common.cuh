@@ -58,6 +58,38 @@ __device__ __forceinline__ int out_state(uint32_t ph, uint32_t mh) {
   return ph ? P_ST : (mh ? M_ST : Z_ST);
 }
 
+// The PEQ word of character c (0..4) from a row's five words, by a chain
+// of selects: indexing the array by a per-thread character would put it
+// in local memory or compile to branches.
+__device__ __forceinline__ uint64_t pick(const uint64_t (&e)[5], int c) {
+  uint64_t r = e[4];
+  r = c == 3 ? e[3] : r;
+  r = c == 2 ? e[2] : r;
+  r = c == 1 ? e[1] : r;
+  return c == 0 ? e[0] : r;
+}
+
+// Whether the carry into stripe `lane` of a warp is M. A stripe's map
+// (a, b) sends "the carry-in is M" to "the carry-out is M" by a constant
+// (a and b both M or both not: R, with the constant in V), the identity,
+// or the negation (a is M, b is not: N); R, V and N are ballots of the
+// warp's stripes. So the carry into a stripe is the constant of the
+// nearest constant stripe below it, or `m0` (the carry into the warp) if
+// there is none, flipped once per negating stripe in between.
+__device__ __forceinline__ int m_in(unsigned R, unsigned V, unsigned N,
+                                    int lane, int m0) {
+  const unsigned below = (1u << lane) - 1u;
+  const unsigned r = R & below;
+  int base = m0;
+  unsigned span = below;
+  if (r) {
+    const int j = 31 - __clz(r);
+    base = (V >> j) & 1;
+    span = below & ~((2u << j) - 1u);
+  }
+  return base ^ (__popc(N & span) & 1);
+}
+
 // The 32-bit shared address of a pointer into shared memory. As volatile
 // asm it is computed once and kept in a register: the compiler would
 // rebuild it from the CTA's shared window at every use inside a loop.
@@ -82,6 +114,26 @@ __device__ __forceinline__ int lds_s32(unsigned addr) {
   int x;
   asm volatile("ld.shared.s32 %0, [%1];" : "=r"(x) : "r"(addr));
   return x;
+}
+
+// Asynchronous 8-byte copies from device to shared memory (cp.async):
+// no register holds the word in flight; a thread sees its own copies after
+// cp_async_wait<0>() (or cp_async_wait_all()).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Bits 0..k of a word, k in [0, 63].

@@ -1,6 +1,6 @@
-"""Time the windowed score and banded traceback kernels of another
-checkout of this repository against this one's, in turns on one card, at
-the shapes the aligner hands them.
+"""Time the windowed score, banded traceback and deep-band score kernels
+of another checkout of this repository against this one's, in turns on
+one card, at the shapes the aligner hands them.
 
     python3 -m quicked_tpu_torch.kernel_ab OTHER [--pairs N] [--length L]
                                            [--long-pairs N] [--long-length L]
@@ -10,16 +10,23 @@ root of the other checkout, for example the parent commit unpacked with
 `git archive <commit> | tar -x -C build/parent`. chip_smoke.py's two
 slices (N pairs x L bp and the long-read pairs, made from the same seeds)
 are aligned once by this checkout while chip_smoke's `Recorder` keeps
-every windowed batch and one traceback chunk (the 10 kbp run's largest,
-the long-read run's first). The other checkout's package is then imported
+every windowed batch, one traceback chunk (the 10 kbp run's largest, the
+long-read run's first) and every host `BandedBatch` the route sends to a
+deep-band kernel (the long-read run's stage 3 and split level 1 on the
+systolic kernel; the carry-scan kernel on BANDED score-only over 16 pairs
+x 30 kbp, also recorded). The other checkout's package is then imported
 in place of this one, so that its own wrappers launch its own kernels,
 built from its sources into its own build/ directory: only the wrappers'
-Python signatures, `windowed_score_staged(st, ws, ovl, hew_cells)` and
-`traceback_records(mat_pv, mat_mv, praw, traw, plen, tlen, prolog)`, and
-what they take must agree. Each recorded batch goes through both, the
-outputs must be equal, and both are timed by CUDA events in turns (other,
-this, this, other), the median of 3 runs each. Exits non-zero if the
-outputs differ.
+Python signatures, `windowed_score_staged(st, ws, ovl, hew_cells)`,
+`traceback_records(mat_pv, mat_mv, praw, traw, plen, tlen, prolog)`,
+`stage_banded(batch, device)`, `sysband_raw(st)` and `cscan_staged(st)`,
+must agree; each checkout stages a deep-band batch with its own
+`stage_banded`, so the staged layouts need not. Each recorded batch goes
+through both, the outputs must be equal (the systolic pass's ABORT flags,
+and its other lanes under its contract: scores, first and last, pv/mv on
+[first, last]), and both are timed by CUDA events in turns (other, this,
+this, other), the median of 3 runs each. Exits non-zero if the outputs
+differ.
 """
 
 from __future__ import annotations
@@ -33,11 +40,17 @@ import sys
 PKG = "quicked_tpu_torch"
 
 
-def load_other(root: str):
-    """The other checkout's `windowed_score_staged` and
-    `traceback_records`: its package imported under this one's name, then
-    this one's modules put back (the other's functions keep their own
-    module globals)."""
+MODULES = {"windowed_score_staged": "windowed_cuda",
+           "traceback_records": "banded_traceback_cuda",
+           "stage_banded": "banded_cuda",
+           "sysband_raw": "banded_sysband_cuda",
+           "cscan_staged": "banded_cscan_cuda"}
+
+
+def load_other(root: str) -> dict:
+    """The other checkout's wrappers named in MODULES, by name: its
+    package imported under this one's name, then this one's modules put
+    back (the other's functions keep their own module globals)."""
     def ours(name):
         return name == PKG or name.startswith(PKG + ".")
 
@@ -45,34 +58,83 @@ def load_other(root: str):
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     try:
-        wc = importlib.import_module(PKG + ".ops.windowed_cuda")
-        btc = importlib.import_module(PKG + ".ops.banded_traceback_cuda")
+        fns = {fn: getattr(importlib.import_module(f"{PKG}.ops.{mod}"), fn)
+               for fn, mod in MODULES.items()}
     finally:
         sys.path.remove(root)
         for k in [k for k in sys.modules if ours(k)]:
             del sys.modules[k]
         sys.modules.update(mine)
-    if not wc.__file__.startswith(root + os.sep):
-        raise RuntimeError(f"imported {wc.__file__}, not from {root}")
-    return wc.windowed_score_staged, btc.traceback_records
+    for fn in fns.values():
+        if not fn.__globals__["__file__"].startswith(root + os.sep):
+            raise RuntimeError(f"imported {fn.__globals__['__file__']}, "
+                               f"not from {root}")
+    return fns
 
 
-def turns(name, shape, other, this):
-    """Outputs of both equal, then CUDA-event medians in turns; False if
-    the outputs differ."""
+def turns(name, shape, other, this, differ=None):
+    """Outputs of both equal (or `differ(a, b)` false), then CUDA-event
+    medians in turns; False if the outputs differ."""
     import torch
 
     from chip_smoke import cuda_ms
 
     a, b = other(), this()
     torch.cuda.synchronize()
-    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+    if differ is None:
+        bad = not all(torch.equal(x, y) for x, y in zip(a, b))
+    else:
+        bad = differ(a, b)
+    if bad:
         print(f"[A/B] {name} ({shape}): outputs differ")
         return False
     t = [cuda_ms(f, 3) for f in (other, this, this, other)]
     print(f"[A/B] {name} ({shape}): other {t[0]:.3f} / {t[3]:.3f} ms, this "
           f"{t[1]:.3f} / {t[2]:.3f} ms, outputs equal")
     return True
+
+
+def sysband_differ(a, b):
+    """Two systolic passes (dict, ABORT flags) differ: other ABORT flags,
+    or another result on a lane that did not abort, under the contract."""
+    import torch
+
+    from chip_smoke import band_err
+
+    if not torch.equal(a[1], b[1]):
+        return True
+    return band_err(a[0], b[0], (~a[1]).nonzero()[:, 0].cpu()) != 0
+
+
+def cscan_differ(a, b):
+    import torch
+
+    return any(not torch.equal(a[k], b[k]) for k in b)
+
+
+def deep_turns(tag, rec, other) -> bool:
+    """Every recorded deep-band batch through the other checkout's kernel
+    and this one's, each staged by its own checkout."""
+    from quicked_tpu_torch.ops import banded_cscan_cuda as cc
+    from quicked_tpu_torch.ops import banded_cuda as bc
+    from quicked_tpu_torch.ops import banded_sysband_cuda as sb
+
+    ok = True
+    for i, (b, family, _) in enumerate(rec.deep):
+        st_o = other["stage_banded"](b, "cuda")
+        st = bc.stage_banded(b, "cuda")
+        shape = f"B {b.B}, EBB {b.EBB}, NB {b.NB}"
+        if family == "sysband":
+            ok &= turns(f"sysband_{tag}_{i + 1}", shape,
+                        lambda: other["sysband_raw"](st_o),
+                        lambda: sb.sysband_raw(st), sysband_differ)
+        # the carry-scan kernel on every deep batch: its own route's, and
+        # the systolic kernel's (the exact fallback of its ABORT lanes)
+        ok &= turns(f"cscan_{tag}_{i + 1}", shape,
+                    lambda: other["cscan_staged"](st_o),
+                    lambda: cc.cscan_staged(st), cscan_differ)
+        del st_o, st
+    return ok
 
 
 def main(argv=None) -> int:
@@ -95,6 +157,7 @@ def main(argv=None) -> int:
     from quicked_tpu_torch import generate
     from quicked_tpu_torch.ops import banded_traceback_cuda as btc
     from quicked_tpu_torch.ops import windowed_cuda as wc
+    from quicked_tpu_torch.params import QuickedAlgo, QuickedParams
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -106,7 +169,11 @@ def main(argv=None) -> int:
         ("long", cs.record_run(cs.make_pairs(
             generate, args.long_pairs, args.long_length, cs.SEED + 30),
             False))]
-    other_windowed, other_traceback = load_other(args.other)
+    banded = cs.record_run(cs.banded_pairs(generate), False, QuickedParams(
+        algo=QuickedAlgo.BANDED, only_score=True, bandwidth=15))
+    other = load_other(args.other)
+    other_windowed = other["windowed_score_staged"]
+    other_traceback = other["traceback_records"]
     ok = True
     for tag, rec in recorded:
         for i, (st, ws, ovl, cells, _) in enumerate(rec.windowed):
@@ -119,6 +186,8 @@ def main(argv=None) -> int:
                     "B {2}, T {0}, EBB {1}".format(*chunk[0].shape),
                     lambda: other_traceback(*chunk),
                     lambda: btc.traceback_records(*chunk))
+        ok &= deep_turns(tag, rec, other)
+    ok &= deep_turns("banded", banded, other)
     return 0 if ok else 1
 
 

@@ -21,6 +21,7 @@ first, last.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -33,10 +34,42 @@ from quicked_tpu_torch.ops.banded_cuda import (LANE_FIELDS, StagedBanded,
 
 W = 64
 P_ST, Z_ST, M_ST = 0, 1, 2
-# one CTA per pair: at most 1024 threads of at most 64 band blocks each
+# one CTA per pair: 16 warps of 4 band blocks a thread hold 2048 blocks in
+# registers; deeper bands are walked in rounds of 2048, up to MAX_EBB
+MULTI_S, MAX_WARPS = 4, 16
 MAX_EBB = 1024 * 64
 
-CSCAN = Kernel("qtt_banded_cscan", [P] * 16 + [I] * 3 + [P])
+CSCAN = Kernel("qtt_banded_cscan", [P] * 16 + [I] * 5 + [P])
+
+
+@dataclasses.dataclass(frozen=True)
+class CscanLaunch:
+    """How the kernel runs a band of EBB blocks: S band blocks a thread,
+    the threads of a pair's CTA, rounds per column (1: the band stays in
+    registers) and the dynamic shared memory of a CTA."""
+
+    S: int
+    threads: int
+    rounds: int
+    smem_bytes: int
+
+
+def cscan_launch(EBB: int) -> CscanLaunch:
+    """One warp with one band block a thread up to 32 blocks; then up to
+    16 warps of S = 1, 2 or 4 blocks a thread (the least S that fits), so
+    that the few pairs the kernel takes spread their blocks over many
+    warps; past 2048 blocks 16 warps of S = 4 walking the band in rounds
+    of 2048. Shared memory: the boundary Pv/Mv words of each thread and
+    the scores window (the register modes; the rounds keep both in device
+    memory)."""
+    if not 1 <= EBB <= MAX_EBB:
+        raise ValueError(f"EBB {EBB}: the carry-scan kernel takes 1 to "
+                         f"{MAX_EBB} band blocks")
+    S = next((s for s in (1, 2, 4) if EBB <= 32 * MAX_WARPS * s), MULTI_S)
+    threads = 32 * min(-(-EBB // (32 * S)), MAX_WARPS)
+    rounds = -(-EBB // (threads * S))
+    smem = 0 if rounds > 1 else 8 * (2 * (threads + 1) + (EBB + 2) // 2)
+    return CscanLaunch(S=S, threads=threads, rounds=rounds, smem_bytes=smem)
 
 
 def _out_state(pho, mho):
@@ -123,16 +156,14 @@ def banded_cscan_torch(st: StagedBanded) -> dict:
 def _launch_cscan(st: StagedBanded) -> dict:
     if st.full:
         raise ValueError("the carry-scan kernel is score-only")
-    if st.EBB > MAX_EBB:
-        raise ValueError(f"EBB {st.EBB}: the carry-scan kernel takes at "
-                         f"most {MAX_EBB} band blocks")
+    geo = cscan_launch(st.EBB)
     out = launch_outputs(st)
     ptr = torch.Tensor.data_ptr
-    CSCAN.launch(ptr(st.peq), ptr(st.lm), ptr(st.text), ptr(st.init_scores),
-                 *[ptr(st.lanes[k]) for k in LANE_FIELDS],
+    CSCAN.launch(ptr(st.peq), ptr(st.lm), ptr(st.text_pm),
+                 ptr(st.init_scores), *[ptr(st.lanes[k]) for k in LANE_FIELDS],
                  ptr(out["scores_by_k"]), ptr(out["pv"]), ptr(out["mv"]),
                  ptr(out["first"]), ptr(out["last"]), st.B, st.EBB, st.NB,
-                 stream_ptr(st.peq.device))
+                 geo.S, geo.threads, stream_ptr(st.peq.device))
     return out
 
 

@@ -41,6 +41,8 @@ class StagedBanded:
     peq: torch.Tensor          # (K, 5, B) int64, u64 bits
     lm: torch.Tensor           # (K, B) int64
     text: torch.Tensor         # (NB*64, B) uint8, encoded chars 0..4
+    text_pm: torch.Tensor      # (B, NB*64) uint8: `text` pair-major, so a
+                               # pair's columns are contiguous (deep bands)
     init_scores: torch.Tensor  # (EBB+1, B) int32
     lanes: dict                # LANE_FIELDS -> (B,) int32
     B: int
@@ -70,10 +72,11 @@ def stage_banded(batch: BandedBatch, device="cuda") -> StagedBanded:
     lanes = {k: torch.from_numpy(
         np.ascontiguousarray(getattr(batch, k), dtype=np.int32)).to(dev)
         for k in LANE_FIELDS}
+    text = torch.from_numpy(batch.text.astype(np.uint8)).to(dev)
     return StagedBanded(
         peq=fuse_u64(batch.peq_lo, batch.peq_hi).to(dev),
         lm=fuse_u64(batch.lm_lo, batch.lm_hi).to(dev),
-        text=torch.from_numpy(batch.text.astype(np.uint8)).to(dev),
+        text=text, text_pm=text.t().contiguous(),
         init_scores=torch.from_numpy(
             np.ascontiguousarray(batch.init_scores, dtype=np.int32)).to(dev),
         lanes=lanes, B=batch.B, EBB=batch.EBB, NB=batch.NB,
@@ -86,6 +89,7 @@ def select_lanes(st: StagedBanded, idx: torch.Tensor) -> StagedBanded:
     return StagedBanded(
         peq=st.peq[:, :, idx].contiguous(), lm=st.lm[:, idx].contiguous(),
         text=st.text[:, idx].contiguous(),
+        text_pm=st.text_pm[idx].contiguous(),
         init_scores=st.init_scores[:, idx].contiguous(),
         lanes={k: v[idx].contiguous() for k, v in st.lanes.items()},
         B=len(idx), EBB=st.EBB, NB=st.NB, full=st.full)
@@ -229,9 +233,10 @@ def launch_outputs(st: StagedBanded, *extra) -> dict:
     if st.full:
         out.update(mat_pv=empty((NB * W, EBB, B), torch.int64),
                    mat_mv=empty((NB * W, EBB, B), torch.int64))
-    check_cuda(st.peq, st.lm, st.text, st.init_scores, *st.lanes.values(),
-               *out.values(), *extra)
-    if st.text.dtype != torch.uint8 or st.peq.dtype != torch.int64:
+    check_cuda(st.peq, st.lm, st.text, st.text_pm, st.init_scores,
+               *st.lanes.values(), *out.values(), *extra)
+    if st.text.dtype != torch.uint8 or st.text_pm.dtype != torch.uint8 or \
+            st.peq.dtype != torch.int64:
         raise ValueError("staged text must be uint8 and PEQ int64")
     return out
 

@@ -23,6 +23,7 @@ on [first, last].
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -38,9 +39,14 @@ W = 64
 CY = W + 1
 RECENTER = 128
 TOPBIT = -(1 << 63)      # the level mask of rows past the pattern
-# 1024 threads x 16 rows: the route sends at most EBB 8192 (the largest
+# 256 threads x 34 rows: the route sends at most EBB 8192 (the largest
 # pow2 bucket at or below SYSBAND_MAX_EBB), which needs 8704 rows
-MAX_RESIDENT = 16 * 1024
+MAX_RESIDENT = 34 * 256
+# shared memory a CTA may use on the H100 (the opt-in maximum), and what
+# the kernel declares statically: sval (6 ints) and the first/last rings
+# (2 x 256 ints)
+SMEM_PER_CTA = 232_448
+STATIC_SMEM = 4 * (6 + 2 * 256)
 
 def resident_rows(ebb: int) -> int:
     """Resident-window depth in RECENTER-lane rows: EBB+2 band rows +
@@ -58,7 +64,7 @@ def total_steps(nb: int, ns: int) -> int:
     return CY * nb + nb + ns + 2 * CY
 
 
-SYSBAND = Kernel("qtt_banded_sysband", [P] * 16 + [I] * 5 + [P])
+SYSBAND = Kernel("qtt_banded_sysband", [P] * 16 + [I] * 8 + [P])
 
 
 def geometry(EBB: int) -> tuple[int, int]:
@@ -67,6 +73,55 @@ def geometry(EBB: int) -> tuple[int, int]:
     NS = resident_rows(EBB) * RECENTER
     ring = 1 << max(math.ceil(math.log2(NS // CY + 8)), 4)
     return NS, ring
+
+
+@dataclasses.dataclass(frozen=True)
+class SysbandLaunch:
+    """How the kernel runs a band of EBB blocks: NS resident rows, M of
+    them per thread, where each row's PEQ words and level mask live, the
+    text ring's bytes and the dynamic shared memory of a CTA."""
+
+    NS: int
+    ring: int               # first/last ring length
+    rows_per_thread: int
+    threads: int
+    words: str              # "registers", "shared" or "device"
+    text_ring: int          # bytes, a power of two >= NS + 512
+    smem_bytes: int         # dynamic shared memory per CTA
+
+
+# where a resident row's words live -> (row slots per thread, dynamic
+# shared bytes a slot, the most threads: 512 leave 128 registers a
+# thread, 256 leave 255 for 34 rows' Pv/Mv words)
+WORDS = {"registers": (2, 0, 512), "shared": (8, 48, 512),
+         "device": (34, 24, 256)}
+WORDS_CODE = {"registers": 0, "shared": 1, "device": 2}
+
+
+def sysband_launch(EBB: int) -> SysbandLaunch:
+    """The kernel's launch geometry for a band of EBB blocks: threads of M
+    row slots (the last thread may hold fewer rows). Two rows a thread
+    with their six words in registers while the window fits (NS <= 1024);
+    else 8 rows a thread with the words in shared memory, 48 bytes a slot,
+    while NS <= 4096; else 34 rows a thread on at most 256 threads, the
+    level mask, score row and mask bits in shared memory and the PEQ word
+    copied from device memory a step ahead. Shared memory also holds the
+    carry exchange (8 bytes a thread) and the text ring, which spans the
+    window's columns: NS plus the recenter's 128, two chunks of look-ahead
+    and one of slack."""
+    NS, ring = geometry(EBB)
+    if NS > MAX_RESIDENT:
+        raise ValueError(f"EBB {EBB}: the systolic kernel holds at most "
+                         f"{MAX_RESIDENT} resident rows, {NS} needed")
+    words = ("registers" if NS <= 1024 else
+             "shared" if NS <= 4096 else "device")
+    m, slot_bytes, _ = WORDS[words]
+    threads = -(-NS // m)
+    text_ring = 1 << (NS + 512 - 1).bit_length()
+    return SysbandLaunch(
+        NS=NS, ring=ring, rows_per_thread=m, threads=threads, words=words,
+        text_ring=text_ring,
+        smem_bytes=(slot_bytes * m + 8) * threads + text_ring)
 
 
 def _lane_torch(st: StagedBanded, j: int, NS: int):
@@ -270,18 +325,17 @@ def banded_sysband_torch(st: StagedBanded) -> tuple[dict, torch.Tensor]:
 def _launch_sysband(st: StagedBanded) -> tuple[dict, torch.Tensor]:
     if st.full:
         raise ValueError("the systolic kernel is score-only")
-    NS, ring = geometry(st.EBB)
-    if NS > MAX_RESIDENT:
-        raise ValueError(f"EBB {st.EBB}: the systolic kernel holds at most "
-                         f"{MAX_RESIDENT} resident rows, {NS} needed")
     abort = torch.empty((st.B,), dtype=torch.int32, device=st.peq.device)
     out = launch_outputs(st, abort)
+    geo = sysband_launch(st.EBB)
     ptr = torch.Tensor.data_ptr
-    SYSBAND.launch(ptr(st.peq), ptr(st.lm), ptr(st.text),
+    SYSBAND.launch(ptr(st.peq), ptr(st.lm), ptr(st.text_pm),
                    *[ptr(st.lanes[k]) for k in LANE_FIELDS],
                    ptr(out["scores_by_k"]), ptr(out["pv"]), ptr(out["mv"]),
                    ptr(out["first"]), ptr(out["last"]), ptr(abort), st.B,
-                   st.EBB, st.NB, NS, ring, stream_ptr(st.peq.device))
+                   st.EBB, st.NB, geo.NS, geo.ring, geo.rows_per_thread,
+                   WORDS_CODE[geo.words], geo.text_ring,
+                   stream_ptr(st.peq.device))
     return out, abort != 0
 
 

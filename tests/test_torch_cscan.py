@@ -59,3 +59,31 @@ def test_torch_cscan_refuses_cpu_and_full_batches():
     with pytest.raises(ValueError, match="score-only"):
         cc.cscan_staged(st_full)
     assert cc.CSCAN.launches == 0
+
+
+@pytest.mark.parametrize("ebb", [33, 48, 64, 65, 100, 128, 129, 512, 513,
+                                 1000, 2048, 2049, 16384, 65536])
+def test_torch_cscan_launch_geometry(ebb):
+    """Every EBB the route sends the carry-scan kernel (buckets 48 to
+    65,536, their pairs' bands down to 33 blocks): threads a whole number
+    of warps within the launch bound, shared memory within the H100's,
+    and every band block in exactly one thread's stripe of one round."""
+    geo = cc.cscan_launch(ebb)
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= 512
+    assert geo.smem_bytes <= 232_448
+    seg = geo.threads * geo.S
+    blocks = sorted(r * seg + t * geo.S + s for r in range(geo.rounds)
+                    for t in range(geo.threads) for s in range(geo.S))
+    assert blocks == list(range(geo.rounds * seg))
+    assert geo.rounds * seg >= ebb > (geo.rounds - 1) * seg
+    if ebb <= 2048:
+        assert geo.rounds == 1
+        assert geo.threads == -(-ebb // (32 * geo.S)) * 32
+        assert geo.S == (1 if ebb <= 512 else 2 if ebb <= 1024 else 4)
+    else:
+        assert (geo.S, geo.threads) == (4, 512)
+
+
+def test_torch_cscan_launch_refuses_deeper_bands():
+    with pytest.raises(ValueError, match="band blocks"):
+        cc.cscan_launch(65537)

@@ -82,9 +82,10 @@ def test_torch_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_torch_kernel_ab_loads_the_other_checkout(tmp_path):
-    """kernel_ab.load_other imports another checkout's windowed and
-    traceback wrappers under the port's name, with their own modules, and
-    puts this checkout's modules back."""
+    """kernel_ab.load_other imports another checkout's windowed,
+    traceback and deep-band wrappers (and its staging) under the port's
+    name, with their own modules, and puts this checkout's modules
+    back."""
     import shutil
 
     from quicked_tpu_torch import kernel_ab
@@ -98,16 +99,25 @@ def test_torch_kernel_ab_loads_the_other_checkout(tmp_path):
                 if k.split(".")[0] == "quicked_tpu_torch"}
 
     before = ours()
-    windowed, traceback = kernel_ab.load_other(str(tmp_path))
+    other = kernel_ab.load_other(str(tmp_path))
     assert ours() == before
-    for fn in (windowed, traceback):
+    assert set(other) == set(kernel_ab.MODULES)
+    for fn in other.values():
         assert fn.__globals__["__file__"].startswith(str(tmp_path))
+    windowed = other["windowed_score_staged"]
     assert windowed.__globals__["WINDOWED"] is not wc.WINDOWED
     b = wc.prepare_windowed_batch(["ACGTACGTTA"], ["ACGTTCGTA"],
                                   window_size=2)
     got = windowed(wc.stage_windowed(b, "cpu"), 2, 1, 0)
     want = wc.windowed_score_staged(wc.stage_windowed(b, "cpu"), 2, 1, 0)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
+    batch = prepare_banded_batch(["ACGTACGTTA"], ["ACGTTCGTA"], [65],
+                                 full=False)
+    st = other["stage_banded"](batch, "cpu")
+    assert type(st) is not bc.StagedBanded
+    want = cc.cscan_staged(bc.stage_banded(batch, "cpu"))
+    got = other["cscan_staged"](st)
+    assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 def tb_args(pats, txts, cutoff):
@@ -266,12 +276,17 @@ def test_torch_kernels_match_plain_on_card():
 
     # deep-band passes: carry-scan (all keys) and systolic (ABORT flags,
     # then scores/first/last and pv/mv on [first, last] of the others);
-    # cutoffs 108000 and 510000 give the systolic kernel's 4- and
-    # 16-rows-per-thread windows and the carry-scan kernel's 4- and
-    # 16-blocks-per-thread stripes
-    for n, cutoff in ((8, 150), (2, 108_000), (2, 510_000)):
+    # cutoffs 150, 3000 and 7000 give the carry-scan kernel's one-warp
+    # stripes (1, 2 and 4 band blocks per thread) and the systolic
+    # kernel's words in registers; 108000 its words in shared memory (8
+    # rows per thread) and the carry-scan kernel's several warps; 510000
+    # its PEQ words from device memory (16 rows per thread) and the
+    # carry-scan kernel's rounds
+    for n, cutoff in ((8, 150), (8, 3000), (8, 7000), (2, 108_000),
+                      (2, 510_000)):
         st = bc.stage_banded(prepare_banded_batch(
             pats[:n], txts[:n], [cutoff] * n, full=False), "cuda")
+        assert torch.equal(st.text_pm, st.text.t())
         kern, plain = cc.cscan_staged(st), cc.banded_cscan_torch(st)
         for k in plain:
             assert torch.equal(kern[k], plain[k]), (cutoff, k)

@@ -126,3 +126,34 @@ def test_torch_longread_slice_takes_every_family(monkeypatch):
         c = Cigar(operations=ops or "")
         assert (got.score[i], got.cigar[i]) == (c.score_edit(),
                                                 c.sprint(True)), i
+
+
+@pytest.mark.parametrize("family", ["cscan", "sysband"])
+def test_torch_banded_score_takes_deep_family(monkeypatch, family):
+    """BANDED score-only through BatchAligner on the CPU, the route's
+    bounds shrunk so that the pairs' bucket (4 band blocks) goes to the
+    carry-scan or the systolic kernel's plain version; scores equal
+    quicked_tpu.api's."""
+    consts = dict(PALLAS_MAX_EBB=2, CSCAN_MIN_EBB=2, SYSBAND_MIN_EBB=1000,
+                  SYSBAND_MAX_EBB=1000)
+    if family == "sysband":
+        consts.update(SYSBAND_MIN_EBB=4, SYSBAND_MAX_EBB=4)
+    for name, value in consts.items():
+        monkeypatch.setattr(batch, name, value)
+    taken = []
+    real_score = batch.score_staged
+
+    def score_staged(st, fam):
+        taken.append((fam, st.EBB))
+        return real_score(st, fam)
+
+    monkeypatch.setattr(batch, "score_staged", score_staged)
+    pairs = list(generate.generate_pairs(3, 1000, error=0.1, seed=4,
+                                         indels_num=2, indels_length=40))
+    prm = QuickedParams(algo=params.QuickedAlgo.BANDED, only_score=True,
+                        bandwidth=15)
+    got = api.BatchAligner(prm, device="cpu").align(pairs)
+    assert {f for f, _ in taken} == {family}, taken
+    want = jax_api.align_batch(pairs, prm)
+    assert [int(s) for s in got.status] == [int(s) for s in want.status]
+    assert list(got.score) == list(want.score)

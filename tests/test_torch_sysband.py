@@ -124,3 +124,47 @@ def test_torch_sysband_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         sb._launch_sysband(st)
     assert sb.SYSBAND.launches == 0
+
+
+@pytest.mark.parametrize("ebb", [129, 192, 256, 630, 631, 1024, 1690, 2048,
+                                 3706, 3707, 4096, 7970, 8192])
+def test_torch_sysband_launch_geometry(ebb):
+    """Every EBB the route sends the systolic kernel (buckets 192 to 8192,
+    their pairs' bands down to 129 blocks): the window as the model sizes
+    it, threads and shared memory within the H100's limits and the
+    instantiation's launch bound, every resident row in exactly one slot,
+    a text ring that spans the window's columns."""
+    geo = sb.sysband_launch(ebb)
+    NS, ring = sb.geometry(ebb)
+    assert (geo.NS, geo.ring) == (NS, ring)
+    assert NS >= ebb + 2 + 3 * sb.RECENTER
+    m, slot_bytes, max_threads = sb.WORDS[geo.words]
+    assert geo.rows_per_thread == m
+    assert geo.threads == -(-NS // m) <= max_threads <= 1024
+    slots = sorted(t * m + s for t in range(geo.threads) for s in range(m)
+                   if t * m + s < NS)
+    assert slots == list(range(NS))
+    assert (geo.threads - 1) * m < NS      # every thread holds a row
+    assert geo.text_ring & (geo.text_ring - 1) == 0
+    assert geo.text_ring >= NS + 512
+    assert geo.smem_bytes == (slot_bytes * m + 8) * geo.threads + \
+        geo.text_ring
+    assert geo.smem_bytes + sb.STATIC_SMEM <= sb.SMEM_PER_CTA
+    assert geo.words == ("registers" if NS <= 1024 else
+                         "shared" if NS <= 4096 else "device")
+
+
+def test_torch_sysband_launch_refuses_deeper_windows():
+    with pytest.raises(ValueError, match="resident rows"):
+        sb.sysband_launch(8400)
+
+
+def test_torch_staged_text_pair_major():
+    """The pair-major text the deep-band kernels read is the lane-minor
+    text transposed, also after a lane selection."""
+    st = bc.stage_banded(_geometry("inverted_and_batch"), "cpu")
+    assert st.text_pm.shape == (st.B, st.NB * 64)
+    assert torch.equal(st.text_pm, st.text.t())
+    sel = bc.select_lanes(st, torch.tensor([1]))
+    assert torch.equal(sel.text_pm, st.text_pm[1:])
+    assert sel.text_pm.is_contiguous()

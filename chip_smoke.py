@@ -9,9 +9,9 @@ Run from the repository root. It builds the port's CUDA kernels from
 
   phase 1  names the card (nvidia-smi name and power limit) and its SM
            clock, times the kernel build and prints the register report
-           of every instantiation of the fill, windowed, traceback,
-           systolic and carry-scan kernels (`nvcc -Xptxas -v`; any spill
-           fails), and builds (or loads)
+           of every instantiation of the fill, windowed (score and full),
+           traceback, systolic, carry-scan and split kernels (`nvcc
+           -Xptxas -v`; any spill fails), and builds (or loads)
            the port's host C library, the oracle and the record
            expansion;
   phase 2  runs each kernel and its plain PyTorch version on the same
@@ -24,7 +24,9 @@ Run from the repository root. It builds the port's CUDA kernels from
            full fills, the traceback, ws 2 and 9 for the windowed bound);
            8 of those pairs for the carry-scan and systolic passes, the
            split epilogue and ws 1 (ovl 0), 14, 15 (the window's
-           shared/scratch cutover), 20 and 33 (past one warp), and one
+           shared/scratch cutover), 20 and 33 (past one warp), the
+           windowed full-CIGAR mode at ws 1 (ovl 0), 2, 9, 14, 15 and 20
+           on them and a pure-deletion and a pure-insertion pair, and one
            pair of 25 kbp for the
            systolic recentering, the plain side on a host copy; the
            deepest two of 16 pairs of 10 kbp with four 500 bp indels, full
@@ -42,9 +44,12 @@ Run from the repository root. It builds the port's CUDA kernels from
            pair) and past 2048 (the band walked in rounds), score, full
            and at text-finish midpoints; and, at
            the shapes one long-read run hands the kernels, the split
-           epilogue on each fused level, the fill on the smallest fused
-           level and on the first stage-4 base-case chunk (the plain
-           versions on a host copy of one or two lanes); the windowed
+           epilogue on every split level (level 1 on the systolic pass's
+           outputs, also against hirschberg_split_fast on the same
+           words; the later ones on the fill's), timed by its device time
+           (torch.profiler), the fill on the smallest fill level and on
+           the first stage-4 base-case chunk (the plain versions on a
+           host copy of one or two lanes); the windowed
            kernel on batches of 1, 17, 140, 700 and 4,300 pairs (1 to 32
            pairs per warp), the traceback on one pair with a 500-row
            D-run and on random planes at EBB 1, 128 and 7,300 (D-runs past
@@ -59,11 +64,17 @@ Run from the repository root. It builds the port's CUDA kernels from
            been launched by that run;
   phase 5  the long-read path: --long-pairs pairs x --long-length bp the
            same way (stage 3 and the first split level on the systolic
-           pass, the next levels fused with the split epilogue), held
-           against the host C cascade (its Hirschberg for the pairs over
-           the 16 MB budget), every kernel of the path launched; then
-           BANDED score-only on 16 pairs x 30 kbp (the carry-scan pass)
-           against the host C banded kernel;
+           pass, the next levels on the fill, every level finished by the
+           split epilogue on the card, no midpoint searched on the host),
+           held against the host C cascade (its Hirschberg for the pairs
+           over the 16 MB budget), every kernel of the path launched;
+           then BANDED score-only on 16 pairs x 30 kbp (the carry-scan
+           pass) against the host C banded kernel;
+  phase 6  WINDOWED with CIGARs (ws 9, ovl 1) over the phase-3 pairs
+           through `api.BatchAligner`, every score and CIGAR held to the
+           host C windowed full mode (`native.windowed_full`), the
+           full-mode kernel launched, then timed on that batch with its
+           bound and held to its plain version on two lanes;
   recorded both slices aligned once more, untimed, while `Recorder`
            keeps what they hand the windowed kernel (stage 1, stage 2
            forward and reverse), the traceback (the 10 kbp run's
@@ -84,8 +95,8 @@ The line before the last is a JSON object with one entry per kernel,
 with its bound: the larger of the bytes its function must move over
 3.35 TB/s and its operations over the card's int32 rate (Myers advances
 at OPS_PER_ADVANCE each). `quicked_tpu_torch.kernel_ab` times another
-checkout's windowed, traceback and deep-band kernels against this one's
-at the recorded shapes. The last line is {"ok": true, "device":
+checkout's windowed, traceback, deep-band and split kernels against this
+one's at the recorded shapes. The last line is {"ok": true, "device":
 {...}}. Any failure exits non-zero without that line. No CUDA card, or no repository around the script,
 also exits non-zero.
 """
@@ -142,7 +153,10 @@ REPLACES = {
     "banded_cscan": "quicked_tpu/ops/banded_cscan_pallas.py:176",
     "banded_sysband": "quicked_tpu/ops/banded_sysband_pallas.py:68",
     "hirschberg_split": "quicked_tpu/ops/hirschberg_split_jax.py:39",
+    "windowed_full": "quicked_tpu/ops/windowed_jax.py:186",
 }
+# the source of each kernel, where it is not csrc/<name>.cu
+SOURCES = {"windowed_full": "windowed_score"}
 
 
 class SmokeFailure(Exception):
@@ -203,7 +217,8 @@ REPORTED = {
          "S={0} several_warps={1} full={2}"),
         (r"banded_fill_stream_kernelILb(\d)E", "streamed full={0}")),
     "windowed_score.cu": (
-        (r"windowed_score_kernelILb(\d)E", "shared={0}"),),
+        (r"windowed_kernelILb(\d)ELb(\d)E", "shared={0} full={1}"),),
+    "hirschberg_split.cu": ((r"hsplit_kernel", "warps walk task spans"),),
     "banded_traceback.cu": ((r"banded_traceback_kernel", "warp per pair"),),
     "banded_sysband.cu": (
         (r"banded_sysband_kernelILi(\d+)ELi(\d)E",
@@ -516,37 +531,97 @@ def band_err(got, want, lanes):
     return err
 
 
-def hsplit_check(name, b, torch):
-    """The fill and the split epilogue on the card over an interleaved
-    forward/reverse level batch `b`; the plain split on a host copy of
-    the fill's outputs. Feasibility flags equal, split values equal on
-    the feasible tasks."""
-    from quicked_tpu_torch.ops import banded_cuda as bc
+def device_ms(fn, kernel, reps=5):
+    """Median device milliseconds of the launches of `kernel` (a substring
+    of its name) over `reps` runs of fn, by torch.profiler. For a kernel
+    shorter than the host time of its wrapper, which the CUDA events
+    around a call would measure instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [_device_ms(e) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and
+             kernel in e.name]
+    check(times, f"the profiler recorded no launch of {kernel}")
+    return statistics.median(times)
+
+
+def hsplit_bound(host_out, host_task):
+    """Bound of one split epilogue call: per feasible task the words of
+    both spans the split must read (Pv and Mv, 16 bytes a word: the
+    forward band from bottom_cell over n_cells - 1 cells, the reverse one
+    from higher_cell_r over n_cells), and per task its two lanes'
+    first/last and score rows, its three scalars and four results read or
+    written once; one compare a candidate cell of the argmin."""
     from quicked_tpu_torch.ops import hirschberg_split_cuda as hs
 
-    st = bc.stage_banded(b, "cuda")
-    out = bc.fill_staged(st)
+    g = hs.split_geometry(host_out, *host_task)
+    ok = g["feasible"]
+    n, fwd, rev = (g[k][ok] for k in ("n_cells", "bottom_cell",
+                                       "higher_cell_r"))
+    words = ((fwd + n - 2) >> 6) - (fwd >> 6) + 1 + \
+        ((rev + n - 1) >> 6) - (rev >> 6) + 1
+    tasks = len(host_task[0])
+    return bound(int(words.sum()) * 16 + tasks * (16 + 8 + 12 + 16),
+                 int(n.sum()))
+
+
+def hsplit_check(name, b, out, torch, spec=False):
+    """The split epilogue on the card over a score pass's outputs `out`
+    for the interleaved forward/reverse level batch `b`, against the plain
+    split on a host copy of them, every output equal; with `spec`, each
+    task also against the host's myers_np.hirschberg_split_fast on the
+    same words (a deep level, whose midpoints the host once searched).
+    Timed by its device time (torch.profiler) and, wrapper included, by
+    CUDA events."""
+    import numpy as np
+
+    from quicked_tpu_torch.ops import hirschberg_split_cuda as hs
+    from quicked_tpu_torch.ops import myers_np
+
     task = [torch.tensor(a[0::2], dtype=torch.int32, device="cuda")
             for a in (b.prolog, b.plen, b.tlen)]
-    kern = hs.hirschberg_split(out, *task)
-    torch.cuda.synchronize()
+    kern = [x.cpu() for x in hs.hirschberg_split(out, *task)]
     host_out = {k: v.cpu() for k, v in out.items()}
+    host_task = [x.cpu() for x in task]
     plain, plain_ms = host_ms(lambda: hs.hirschberg_split_torch(
-        host_out, *[x.cpu() for x in task]))
-    ok = plain[3].bool()
-    check(torch.equal(kern[3].cpu(), plain[3]),
-          f"{name}: feasibility flags differ")
-    err = max(max_abs_err(a.cpu()[ok], b_[ok])
-              for a, b_ in zip(kern[:3], plain[:3]))
+        host_out, *host_task))
+    err = max(max_abs_err(k, p) for k, p in zip(kern, plain))
     check(err == 0, f"{name}: kernel disagrees with plain version")
-    ms = cuda_ms(lambda: hs.hirschberg_split(out, *task), 5)
-    # per task: both lanes' Pv/Mv bands, two score rows, four results
-    b_ms, b_by = bound(st.B // 2 * (2 * st.EBB * 16 + 8 + 16))
-    print(f"[phase 2] {name}: {st.B // 2} tasks, EBB={st.EBB} NB={st.NB}, "
-          f"{int(ok.sum())} feasible, bit-exact, kernel {ms:.3f} ms (bound "
-          f"{b_ms:.4f} ms, {b_by}), plain on the host {plain_ms:.1f} ms")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+    msg = ""
+    if spec:
+        def words(j, k):
+            return host_out[k][:, j].numpy().view(np.uint64)
+
+        for j in range(len(host_task[0])):
+            f, r = 2 * j, 2 * j + 1
+            want = myers_np.hirschberg_split_fast(
+                words(f, "pv"), words(f, "mv"), int(host_out["first"][f]),
+                int(host_out["last"][f]), host_out["scores_by_k"][:, f]
+                .numpy(), words(r, "pv"), words(r, "mv"),
+                int(host_out["first"][r]), int(host_out["last"][r]),
+                host_out["scores_by_k"][:, r].numpy(),
+                int(b.prolog[f]), int(b.plen[f]), int(b.tlen[f]))
+            got = tuple(int(x[j]) for x in kern[:3]) if kern[3][j] else None
+            check(got == want, f"{name}: task {j} differs from "
+                  f"hirschberg_split_fast on the same words")
+        msg = ", equal to hirschberg_split_fast"
+    ms = device_ms(lambda: hs.hirschberg_split(out, *task), "hsplit_kernel")
+    call_ms = cuda_ms(lambda: hs.hirschberg_split(out, *task), 5)
+    b_ms, b_by = hsplit_bound(host_out, host_task)
+    print(f"[phase 2] {name}: {len(task[0])} tasks, EBB={b.EBB} NB={b.NB} "
+          f"{hs.hsplit_launch(len(task[0]), b.EBB, 132)} (warps a task, "
+          f"tasks a CTA), {int(kern[3].sum())} feasible, bit-exact{msg}; "
+          f"kernel {ms:.4f} ms (the call {call_ms:.4f} ms; bound "
+          f"{b_ms:.5f} ms, {b_by}), plain on the host {plain_ms:.1f} ms")
+    return dict(err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def phase2_deepband(gen, torch, pool):
@@ -609,13 +684,26 @@ def phase2_deepband(gen, torch, pool):
         il[1].extend([t, t[::-1]])
         il[2].extend([max(len(p), len(t)) * 25 // 100] * 2)
         il[3].extend([mid, len(t) - mid])
+    b = prepare_banded_batch(*il[:3], full=False, text_finish=il[3])
     res["hsplit"] = hsplit_check(
-        "hsplit", prepare_banded_batch(*il[:3], full=False,
-                                       text_finish=il[3]), torch)
+        "hsplit", b, bc.fill_staged(bc.stage_banded(b, "cuda")), torch)
 
     for ws, ovl in WINDOW_SHAPES:
         res.update(windowed_check(f"windowed_ws{ws}", pats, txts, ws, ovl,
                                   torch, pool))
+
+    # the full-CIGAR mode, with a pure-deletion and a pure-insertion pair
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 90)
+    d = "".join(rng.choice(list("ACGT"), 1500))
+    fp, ft = pats + [d, d[400:700]], txts + [d[400:700], d]
+    for ws, ovl in FULL_WINDOW_SHAPES:
+        st = wc.stage_windowed(wc.prepare_windowed_batch(fp, ft,
+                                                         window_size=ws),
+                               "cuda")
+        res.update(windowed_full_check(f"wfull_ws{ws}", st, ws, ovl, torch,
+                                       pool))
     return res
 
 
@@ -639,6 +727,8 @@ def sysband_plain_check(pool, name, kern, host, entry):
 # the windowed kernel's branches: ws 1 (ovl 0); the last window in shared
 # memory (14) and the first in the scratch (15); 20; past one warp (33)
 WINDOW_SHAPES = ((1, 0), (14, 1), (15, 1), (20, 1), (33, 1))
+# the full-CIGAR mode's: ws 1 (ovl 0), 2, 9 (the default), 14, 15, 20
+FULL_WINDOW_SHAPES = ((1, 0), (2, 1), (9, 1), (14, 1), (15, 1), (20, 1))
 
 
 def windowed_check(name, pats, txts, ws, ovl, torch, pool, reps=5):
@@ -661,6 +751,47 @@ def windowed_check(name, pats, txts, ws, ovl, torch, pool, reps=5):
           f"ms (bound {b_ms:.4f} ms, {b_by})")
     plain_check(pool, name, kern, wc.windowed_scan_torch,
                 (wc.stage_windowed(wb, "cpu"), ws, ovl, cells), entry)
+    return {name: entry}
+
+
+def windowed_full_bound(st, ws, ovl):
+    """(windows, (bound_ms, bound_by)) of a full-mode windowed launch: the
+    score kernel's count of the fewest windows (`windowed_bound`), and the
+    (B, MW, 64 ws) records of 3 bytes and the final cursors written."""
+    from quicked_tpu_torch.ops import windowed_cuda as wc
+
+    windows, _ = windowed_bound(st, ws, ovl)
+    B = st.plen.numel()
+    mw = wc.max_windows(st.pat_raw.shape[0], st.text_enc.shape[0], ws, ovl)
+    nbytes = sum(x.numel() * x.element_size() for x in (
+        st.peq, st.text_enc, st.text_raw, st.pat_raw, st.plen, st.tlen,
+        st.num_words)) + B * mw * 64 * ws * 3 + 8 * B
+    return windows, bound(nbytes, windows * 64 * ws * ws * OPS_PER_ADVANCE)
+
+
+def windowed_full_check(name, st, ws, ovl, torch, pool, lanes=None,
+                        reps=3, phase="phase 2"):
+    """The full-mode windowed kernel on the staged CUDA batch `st`
+    against its plain version on a host copy of lanes `lanes` (or all),
+    records and cursors bit-exact; its time (zeroing the records and the
+    pair-major copies included) by CUDA events, with its bound."""
+    from quicked_tpu_torch.ops import windowed_cuda as wc
+
+    B = st.plen.numel()
+    idx = torch.arange(B) if lanes is None else torch.tensor(lanes)
+    kern = [x[idx.cuda()].cpu()
+            for x in wc.windowed_full_staged(st, ws, ovl)]
+    ms = cuda_ms(lambda: wc.windowed_full_staged(st, ws, ovl), reps)
+    windows, (b_ms, b_by) = windowed_full_bound(st, ws, ovl)
+    entry = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
+    which = "all lanes" if lanes is None else f"lanes {lanes}"
+    print(f"[{phase}] {name}: ws={ws} ovl={ovl} B={B} "
+          f"T={st.text_enc.shape[0]}, at least {windows} windows, records "
+          f"{tuple(kern[0].shape[1:])} a pair, max run {int(kern[0].max())}"
+          f", {which} to the plain version: kernel {ms:.3f} ms (bound "
+          f"{b_ms:.4f} ms, {b_by})")
+    plain_check(pool, name, kern, wc.windowed_full_torch,
+                (select_windowed(st, idx), ws, ovl), entry)
     return {name: entry}
 
 
@@ -779,46 +910,40 @@ def phase2_traceback(gen, torch, pool):
     return res
 
 
-def level1_batch(pairs, torch):
-    """The long-read phase's first Hirschberg split level: its pairs'
-    stage-4 bounds (stages 1-3 on the card), the forward and reverse half
-    passes of every pair over the 16 MB budget, bucketed as
-    banded_score_results buckets them; returns the largest bucket the
-    route sends to the systolic kernel, as a BandedBatch."""
-    from quicked_tpu_torch.ops import myers_np
-    from quicked_tpu_torch.ops.batch_prep import prepare_banded_batch
-    from quicked_tpu_torch.params import HIRSCHBERG_BUFFER_SIZE, QuickedParams
-    from quicked_tpu_torch.utils.profiler import PhaseTimers
-    from quicked_tpu_torch.aligner.batch import score_family, score_key
-    from quicked_tpu_torch.aligner.cascade import proven_bounds
+def record_levels(long_pairs):
+    """One run of the long-read phase's pairs through the aligner, keeping
+    each Hirschberg split level batch it hands the split (interleaved
+    forward/reverse lanes, with the family of its score pass: level 1 on
+    the systolic pass, the later ones on the fill) and its first stage-4
+    base-case chunk (a full fill)."""
+    from quicked_tpu_torch.aligner import batch as qb
+    from quicked_tpu_torch.api import BatchAligner
+    from quicked_tpu_torch.params import QuickedParams
 
-    pats = [p for p, _ in pairs]
-    txts = [t for _, t in pairs]
-    bounds = proven_bounds(pats, txts, QuickedParams(), PhaseTimers(),
-                           "cuda")
-    lanes = []          # (pattern, text, cutoff, text_finish)
-    for p, t, co in zip(pats, txts, bounds):
-        geo = myers_np.band_geometry(len(p), len(t), int(co))
-        if geo.ebb * len(t) * 16 <= HIRSCHBERG_BUFFER_SIZE:
-            continue
-        mid = (len(t) + 1) // 2
-        lanes += [(p, t, int(co), mid), (p[::-1], t[::-1], int(co),
-                                          len(t) - mid)]
-    buckets: dict = {}
-    for ln in lanes:
-        geo = myers_np.band_geometry(len(ln[0]), len(ln[1]), ln[2])
-        buckets.setdefault(score_key(geo, ln[3]), []).append(ln)
-    deep = [(len(v), k, v) for k, v in buckets.items()
-            if score_family(len(v), k[1]) == "sysband"]
-    check(deep, f"no systolic bucket at level 1: {sorted(buckets)}")
-    n, key, sel = max(deep, key=lambda x: x[0])
-    print(f"[phase 2] full depth: {len(lanes)} level-1 half passes of "
-          f"{len(pairs)} pairs, buckets (NB, EBB) -> lanes "
-          f"{ {k: len(v) for k, v in sorted(buckets.items())} }; "
-          f"bucket {key}")
-    return prepare_banded_batch([x[0] for x in sel], [x[1] for x in sel],
-                                [x[2] for x in sel], full=False,
-                                text_finish=[x[3] for x in sel])
+    levels, chunks = [], []
+    real_split, real_prep = qb._hsplit_fused, qb.prepare_banded_batch
+
+    def recording(batch, dev, family):
+        levels.append((batch, family))
+        return real_split(batch, dev, family)
+
+    def prep(*args, **kw):
+        b = real_prep(*args, **kw)
+        if b.full and not chunks:
+            chunks.append(b)
+        return b
+
+    qb._hsplit_fused, qb.prepare_banded_batch = recording, prep
+    try:
+        BatchAligner(QuickedParams(), device="cuda").align(long_pairs)
+    finally:
+        qb._hsplit_fused, qb.prepare_banded_batch = real_split, real_prep
+    check(levels, "the long-read run split no level")
+    check(chunks, "the long-read run filled no base case")
+    print("[phase 2] the long-read run's split levels (lanes, EBB, NB, "
+          "family): " + ", ".join(f"({b.B}, {b.EBB}, {b.NB}, {f})"
+                                  for b, f in levels))
+    return levels, chunks[0]
 
 
 def deep_plain_check(name, st, b, lanes, torch, pool, cscan_plain=True):
@@ -853,16 +978,19 @@ def deep_plain_check(name, st, b, lanes, torch, pool, cscan_plain=True):
     return res
 
 
-def phase2_fulldepth(long_pairs, torch, pool):
+def phase2_fulldepth(levels, torch, pool):
     """Systolic and carry-scan passes against the fill kernel on the
-    long-read phase's deep level-1 bucket, the only place recentering and
-    deep bands meet at full size; then both against their plain versions
-    on two of its lanes (a pair with large indels, one without)."""
+    long-read phase's deep level 1 (its largest batch on the systolic
+    pass), the only place recentering and deep bands meet at full size;
+    then both against their plain versions on two of its lanes (a forward
+    half pass of a pair with large indels, a reverse one without)."""
     from quicked_tpu_torch.ops import banded_cscan_cuda as cc
     from quicked_tpu_torch.ops import banded_cuda as bc
     from quicked_tpu_torch.ops import banded_sysband_cuda as sb
 
-    b = level1_batch(long_pairs, torch)
+    deep = [b for b, family in levels if family == "sysband"]
+    check(deep, "no split level on the systolic pass")
+    b = max(deep, key=lambda x: x.B)
     st = bc.stage_banded(b, "cuda")
     fill = bc.fill_staged(st)
     before = sb.SYSBAND.fallbacks
@@ -892,45 +1020,30 @@ def phase2_fulldepth(long_pairs, torch, pool):
     return res
 
 
-def phase2_levels(long_pairs, torch, pool):
+def phase2_levels(levels, chunk, torch, pool):
     """The split epilogue and the fill at the shapes the long-read phase
-    gives them: one run of that phase records each fused level batch it
-    hands the fill and split kernels, and its first stage-4 base-case
-    chunk (a full fill); each level is run again here, the plain split on
-    a host copy of the fill's outputs; the fill is timed on every level
-    and on the chunk, and held to its plain version on two lanes of the
-    level with the fewest column blocks and on one lane of the chunk."""
+    gives them (`record_levels`): each split level's score pass run again
+    (the family the route gave it, the systolic pass's ABORT lanes by the
+    carry-scan pass), then the split, held to the plain split on a host
+    copy of the pass's outputs, and on a deep level to
+    hirschberg_split_fast on the same words; the fill timed on every fill
+    level and on the base-case chunk, and held to its plain version on
+    two lanes of the fill level with the fewest column blocks and on one
+    lane of the chunk."""
     from quicked_tpu_torch.aligner import batch as qb
-    from quicked_tpu_torch.api import BatchAligner
     from quicked_tpu_torch.ops import banded_cuda as bc
-    from quicked_tpu_torch.params import QuickedParams
 
-    seen, chunks = [], []
-    real_split, real_prep = qb._hsplit_fused, qb.prepare_banded_batch
-
-    def recording(batch, dev):
-        seen.append(batch)
-        return real_split(batch, dev)
-
-    def prep(*args, **kw):
-        b = real_prep(*args, **kw)
-        if b.full and not chunks:
-            chunks.append(b)
-        return b
-
-    qb._hsplit_fused, qb.prepare_banded_batch = recording, prep
-    try:
-        BatchAligner(QuickedParams(), device="cuda").align(long_pairs)
-    finally:
-        qb._hsplit_fused, qb.prepare_banded_batch = real_split, real_prep
-    check(seen, "the long-read run fused no split level")
-    check(chunks, "the long-read run filled no base case")
-    res = {f"hsplit_fused{i}": hsplit_check(f"hsplit_fused{i}", b, torch)
-           for i, b in enumerate(seen, 1)}
-    small = min(range(len(seen)), key=lambda i: seen[i].NB)
-    for i, b in enumerate(seen, 1):
+    res = {}
+    fills = [i for i, (_, f) in enumerate(levels, 1) if f == "fill"]
+    small = min(fills, key=lambda i: levels[i - 1][0].NB) if fills else 0
+    for i, (b, family) in enumerate(levels, 1):
         st = bc.stage_banded(b, "cuda")
-        if i - 1 == small:
+        res[f"hsplit_level{i}"] = hsplit_check(
+            f"hsplit_level{i} ({family})", b, qb.score_staged(st, family),
+            torch, spec=family != "fill")
+        if family != "fill":
+            continue
+        if i == small:
             res[f"fill_level{i}"] = fill_plain_check(
                 f"fill_level{i}", st, b, [0, 1], torch, pool)
         else:
@@ -940,9 +1053,9 @@ def phase2_levels(long_pairs, torch, pool):
             print(f"[phase 2] fill_level{i}: B={st.B} EBB={st.EBB} "
                   f"NB={st.NB}: kernel {ms:.3f} ms (bound {b_ms:.3f} ms, "
                   f"{b_by})")
-    b = chunks[0]
     res["fill_basecase"] = fill_plain_check(
-        "fill_basecase", bc.stage_banded(b, "cuda"), b, [0], torch, pool)
+        "fill_basecase", bc.stage_banded(chunk, "cuda"), chunk, [0], torch,
+        pool)
     return res
 
 
@@ -1046,7 +1159,8 @@ def kernels():
             "windowed_score": windowed_cuda.WINDOWED,
             "banded_cscan": banded_cscan_cuda.CSCAN,
             "banded_sysband": banded_sysband_cuda.SYSBAND,
-            "hirschberg_split": hirschberg_split_cuda.HSPLIT}
+            "hirschberg_split": hirschberg_split_cuda.HSPLIT,
+            "windowed_full": windowed_cuda.WINDOWED_FULL}
 
 
 def run_counted(fn, torch):
@@ -1102,13 +1216,16 @@ class Recorder:
     `banded_traceback_cuda.traceback_records`), and every score batch the
     route sends to the systolic or carry-scan kernel, as its host
     `BandedBatch` with the family and the lanes the systolic pass aborted
-    (by wrapping the aligner's `stage_banded` and `score_staged`)."""
+    (by wrapping the aligner's `stage_banded` and `score_staged`), and the
+    arguments of every split epilogue call, a score pass's outputs on the
+    card among them (by wrapping the aligner's `hirschberg_split`)."""
 
     def __init__(self, largest_chunk):
         self.largest = largest_chunk
         self.windowed = []
         self.chunk = None
         self.deep = []          # (BandedBatch, family, ABORT lanes)
+        self.hsplit = []        # the split epilogue's arguments, per level
 
     def __enter__(self):
         from quicked_tpu_torch.aligner import batch as qb
@@ -1117,7 +1234,7 @@ class Recorder:
         from quicked_tpu_torch.ops import windowed_cuda as wc
 
         self.real = (wc.windowed_score_staged, btc.traceback_records,
-                     qb.stage_banded, qb.score_staged)
+                     qb.stage_banded, qb.score_staged, qb.hirschberg_split)
         last = [None, None]     # the staged batch and its host batch
 
         def windowed(st, WS, OVL, cells):
@@ -1145,8 +1262,13 @@ class Recorder:
                                   sb.SYSBAND.fallbacks - before))
             return out
 
+        def split(out, prolog, plen, tlen):
+            self.hsplit.append((out, prolog, plen, tlen))
+            return self.real[4](out, prolog, plen, tlen)
+
         wc.windowed_score_staged, btc.traceback_records = windowed, traceback
         qb.stage_banded, qb.score_staged = stage, score
+        qb.hirschberg_split = split
         return self
 
     def __exit__(self, *exc):
@@ -1155,7 +1277,7 @@ class Recorder:
         from quicked_tpu_torch.ops import windowed_cuda as wc
 
         (wc.windowed_score_staged, btc.traceback_records, qb.stage_banded,
-         qb.score_staged) = self.real
+         qb.score_staged, qb.hirschberg_split) = self.real
 
 
 def record_run(pairs, largest_chunk, params=None):
@@ -1420,17 +1542,33 @@ def phase5(gen, pairs, torch):
 
     check(native.available(), "the host C library is needed as the "
           "long-read oracle")
+    from quicked_tpu_torch.ops import myers_np
+
     params = QuickedParams()
     timers = PhaseTimers()
     aligner = BatchAligner(params, device="cuda")
-    res, wall, launches, aborts = run_counted(
-        lambda: aligner.align(pairs, timers=timers), torch)
+    host_splits = []        # midpoints searched on the host: none
+    real_fast = myers_np.hirschberg_split_fast
+
+    def fast(*a):
+        host_splits.append(a)
+        return real_fast(*a)
+
+    myers_np.hirschberg_split_fast = fast
+    try:
+        res, wall, launches, aborts = run_counted(
+            lambda: aligner.align(pairs, timers=timers), torch)
+    finally:
+        myers_np.hirschberg_split_fast = real_fast
     report_run("phase 5", pairs, wall, launches, timers)
     print(f"[phase 5] systolic ABORT lanes recomputed by the carry-scan "
-          f"pass: {aborts}")
+          f"pass: {aborts}; split levels on the card: "
+          f"{launches['hirschberg_split']}, midpoints searched on the host: "
+          f"{len(host_splits)}")
     for name in ("banded_sysband", "hirschberg_split", "banded_fill",
                  "banded_traceback", "windowed_score"):
         check(launches[name] > 0, f"phase 5 never launched {name}")
+    check(not host_splits, "phase 5 searched a midpoint on the host")
     wip = 1    # run_quicked returns QUICKED_WIP on success (quicked.c:305)
     check(all(int(s) == wip for s in res.status), "a status is not WIP")
     (want, over), oracle_ms = host_ms(lambda: host_cascade(pairs, params))
@@ -1461,6 +1599,60 @@ def phase5(gen, pairs, torch):
     print(f"[phase 5] oracle: host C banded kernel, {len(bpairs)} scores "
           f"equal")
     return launches, blaunches
+
+
+def phase6(pairs, torch, pool):
+    """WINDOWED with CIGARs (ws 9, ovl 1) over the phase-3 pairs through
+    `api.BatchAligner` on the card: every score and CIGAR equal to the
+    host C windowed full mode (`native.windowed_full`), the full-mode
+    kernel launched; then the kernel timed on the run's batch (rebuilt as
+    the aligner buckets it) with its bound, and held to its plain version
+    on its first and last lanes of a host copy."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from quicked_tpu_torch import dna, native
+    from quicked_tpu_torch.api import BatchAligner
+    from quicked_tpu_torch.cigar import Cigar
+    from quicked_tpu_torch.ops import windowed_cuda as wc
+    from quicked_tpu_torch.params import QuickedAlgo, QuickedParams
+
+    params = QuickedParams(algo=QuickedAlgo.WINDOWED, only_score=False,
+                           window_size=9, overlap_size=1)
+    aligner = BatchAligner(params, device="cuda")
+    res, wall, launches, _ = run_counted(lambda: aligner.align(pairs),
+                                         torch)
+    bases = sum(max(len(p), len(t)) for p, t in pairs)
+    print(f"[phase 6] WINDOWED with CIGARs, {len(pairs)} pairs x "
+          f"~{len(pairs[0][1])} bp, ws 9 ovl 1: {wall:.3f} s, "
+          f"{len(pairs) / wall:.1f} pairs/s, {bases / wall:.4g} aligned "
+          f"bases/s")
+    print("[phase 6] launches " + json.dumps(launches))
+    check(launches["windowed_full"] > 0, "phase 6 never launched "
+          "windowed_full")
+
+    def oracle(pair):
+        p, t = pair
+        ops = native.windowed_full(dna.encode(p), p.encode(), dna.encode(t),
+                                   t.encode(), 9, 1)
+        c = Cigar(operations=ops)
+        return c.score_edit(), c.sprint(True)
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        want, oracle_ms = host_ms(lambda: list(ex.map(oracle, pairs)))
+    bad = [i for i, (sc, cig) in enumerate(want)
+           if int(res.score[i]) != sc or res.cigar[i] != cig]
+    check(not bad, f"phase 6: pairs {bad[:5]} differ from the host C "
+          f"windowed full mode")
+    print(f"[phase 6] oracle: host C windowed full mode, {len(pairs)} "
+          f"pairs equal, {oracle_ms / 1e3:.1f} s on the host")
+
+    check(launches["windowed_full"] == 1, "phase 6's pairs took more than "
+          "one bucket")
+    st = wc.stage_windowed(wc.prepare_windowed_batch(
+        [p for p, _ in pairs], [t for _, t in pairs], window_size=9), "cuda")
+    return launches, windowed_full_check(
+        "wfull_slice", st, 9, 1, torch, pool, lanes=[0, len(pairs) - 1],
+        phase="phase 6")
 
 
 def _device_ms(evt):
@@ -1568,8 +1760,10 @@ def main(argv=None) -> int:
         p2.update(phase2_banded(generate, torch, pool))
         long_pairs = make_pairs(generate, args.long_pairs, args.long_length,
                                 SEED + 30)
-        p2.update(phase2_fulldepth(long_pairs, torch, pool))
-        p2.update(phase2_levels(long_pairs, torch, pool))
+        levels, chunk = record_levels(long_pairs)
+        p2.update(phase2_fulldepth(levels, torch, pool))
+        p2.update(phase2_levels(levels, chunk, torch, pool))
+        del levels, chunk
         p2.update(phase2_batches(generate, torch, pool))
         p2.update(phase2_traceback(generate, torch, pool))
         t0 = time.perf_counter()
@@ -1579,6 +1773,8 @@ def main(argv=None) -> int:
         pairs, launches, p3 = phase3(generate, args, torch)
         p2.update(p3)
         long_launches, banded_launches = phase5(generate, long_pairs, torch)
+        wfull_launches, p6 = phase6(pairs, torch, pool)
+        p2.update(p6)
         p2.update(check_recorded("10kbp", record_run(pairs, True), torch,
                                  pool, plain=True))
         rec = record_run(long_pairs, False)
@@ -1605,8 +1801,9 @@ def main(argv=None) -> int:
         errs = [v["err"] for k, v in p2.items()
                 if k.startswith(prefixes) and "err" in v]
         t = p2[timed]
+        src = SOURCES.get(name, name)
         return dict(name=name, route="cuda",
-                    source=f"quicked_tpu_torch/csrc/{name}.cu",
+                    source=f"quicked_tpu_torch/csrc/{src}.cu",
                     replaces=REPLACES[name], launches=launched,
                     max_abs_err=max(errs), ms=t["ms"],
                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
@@ -1625,7 +1822,9 @@ def main(argv=None) -> int:
         row("banded_sysband", long_launches["banded_sysband"],
             ("sysband_", "fulldepth_sysband"), "sysband_long_1"),
         row("hirschberg_split", long_launches["hirschberg_split"],
-            ("hsplit",), "hsplit_fused1"),
+            ("hsplit",), "hsplit_level1"),
+        row("windowed_full", wfull_launches["windowed_full"], ("wfull_",),
+            "wfull_slice"),
     ]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

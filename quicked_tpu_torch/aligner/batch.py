@@ -1,18 +1,19 @@
 """Batch-first alignment engine on the card.
 
 The counterpart of quicked_tpu/aligner/batch.py (`banded_align_batch`,
-`banded_score_results`, `hirschberg_level_splits_device`, `_finish`,
-`align_batch_full`, `bucket_keys`, `_lane_pad`). Pairs are bucketed by
+`hirschberg_level_splits_device`, `_finish`, `align_batch_full`,
+`bucket_keys`, `_lane_pad`). Pairs are bucketed by
 band/text geometry and every bucket runs through the port's kernels.
 Score batches take the score-kernel family of the JAX package's device
 route (`score_family`, from its batch.py:540-572): the fill for shallow
 bands, the systolic kernel for deep ones, the carry-scan
 kernel for the rest of the deep batches and for tiny ones. Full batches
 take the full fill plus the on-device traceback. A Hirschberg split level
-whose bands are shallow runs the fill and the split epilogue on the card
-and reads back four numbers per task. What the JAX package routes by
-venue (host C lanes, rate probes, cold-shape deferral, meshes, the
-QUICKED_TPU_* switches) is not carried over: routing is by geometry only.
+runs its score pass and the split epilogue on the card, whatever its
+band's depth, and reads back four numbers per task. What the JAX package
+routes by venue (host C lanes, rate probes, cold-shape deferral, meshes,
+the QUICKED_TPU_* switches) is not carried over: routing is by geometry
+only.
 """
 
 from __future__ import annotations
@@ -171,68 +172,12 @@ def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
     return scores, ops_out
 
 
-@dataclasses.dataclass
-class BandedScoreState:
-    """Per-pair band state in numpy form, as
-    myers_np.hirschberg_split_fast consumes it."""
-
-    score: int
-    pv64: np.ndarray        # (ebb,) uint64 band words
-    mv64: np.ndarray
-    first: int
-    last: int
-    scores_k: np.ndarray    # (K+1,) shifted-row scores
-    prolog: int
-    geometry: myers_np.BandGeometry
-
-
-def banded_score_results(patterns, texts, cutoffs, text_finish=None,
-                         device="cuda"):
-    """Score-only banded runs returning the band state the Hirschberg
-    worklist consumes. `text_finish` stops each lane at its midpoint while
-    the band is sized for the full text (bpm_hirschberg.c:85-100)."""
-    dev = resolve_device(device)
-    n = len(patterns)
-    tlens = [len(t) for t in texts]
-    if text_finish is None:
-        text_finish = tlens
-    results: list = [None] * n
-    by_key: dict = {}
-    geos: list = [None] * n
-    for i in range(n):
-        geos[i] = myers_np.band_geometry(len(patterns[i]), tlens[i],
-                                         int(cutoffs[i]))
-        by_key.setdefault(score_key(geos[i], text_finish[i]),
-                          []).append(i)
-
-    for (_, ebb_p2), idxs in by_key.items():
-        batch = prepare_banded_batch(
-            [patterns[i] for i in idxs], [texts[i] for i in idxs],
-            [cutoffs[i] for i in idxs], full=False,
-            text_finish=[text_finish[i] for i in idxs])
-        out = score_staged(stage_banded(batch, dev),
-                           score_family(len(idxs), ebb_p2))
-        sck_all = out["scores_by_k"].cpu().numpy()
-        final_scores = extract_final_scores(batch, sck_all)
-        pv64 = np.ascontiguousarray(out["pv"].cpu().numpy().view(np.uint64).T)
-        mv64 = np.ascontiguousarray(out["mv"].cpu().numpy().view(np.uint64).T)
-        sck = np.ascontiguousarray(sck_all.T)
-        first = out["first"].cpu().numpy()
-        last = out["last"].cpu().numpy()
-        for j, i in enumerate(idxs):
-            results[i] = BandedScoreState(
-                score=int(final_scores[j]), pv64=pv64[j], mv64=mv64[j],
-                first=int(first[j]), last=int(last[j]), scores_k=sck[j],
-                prolog=int(batch.prolog[j]), geometry=geos[i])
-    return results
-
-
-def _hsplit_fused(batch, dev):
-    """Fill kernel and split epilogue over an interleaved fwd/rev level
-    batch, on `dev`; returns the four per-task vectors (pll, score_l,
-    score_r, feasible) as numpy."""
+def _hsplit_fused(batch, dev, family: str):
+    """The score pass of `family` and the split epilogue over an
+    interleaved forward/reverse level batch, on `dev`; returns the four
+    per-task vectors (pll, score_l, score_r, feasible) as numpy."""
     st = stage_banded(batch, dev)
-    out = fill_staged(st)
+    out = score_staged(st, family)
 
     def task_vec(a):
         return torch.from_numpy(np.ascontiguousarray(
@@ -245,14 +190,20 @@ def _hsplit_fused(batch, dev):
 
 def hirschberg_level_splits_device(pats, txts, cos, mids, mids_r,
                                    device="cuda"):
-    """A fused Hirschberg split level: the forward and reverse half passes
-    and the midpoint epilogue on the card, reading back O(tasks) numbers
+    """A Hirschberg split level on the card: the forward and reverse half
+    passes of each task as lanes 2j and 2j+1 of one score batch per
+    bucket, then the midpoint epilogue, reading back four numbers per task
     instead of band planes (bpm_hirschberg.c:149-200's consumption, after
-    the kernel). Returns per task (pll, score_l, score_r) or None, or
-    None for the whole level when a bucket's band is deeper than the
-    fill's PALLAS_MAX_EBB (those levels take the deep-band kernels through
-    banded_score_results). The counterpart of the JAX package's function
-    of the same name, without its venue, mesh and warm-up branches."""
+    the kernel). The kernels are the JAX package's: where every bucket's
+    band fits the fill (PALLAS_MAX_EBB), the fill, as its fused level
+    runs; where one is deeper, each bucket takes the kernel
+    `score_family` routes it to (the fill, the systolic pass with its
+    ABORT lanes recomputed by the carry-scan pass, or the carry-scan
+    pass), as its `banded_score_results` does before its batched split.
+    Returns per task (pll, score_l, score_r), or None where the split is
+    infeasible. The counterpart of the JAX package's function of the same
+    name with `_level_splits`, without their venue, mesh and warm-up
+    branches."""
     dev = resolve_device(device)
     n = len(pats)
     by_key: dict = {}
@@ -261,10 +212,9 @@ def hirschberg_level_splits_device(pats, txts, cos, mids, mids_r,
                                      int(cos[i]))
         by_key.setdefault(score_key(geo, max(mids[i], mids_r[i])),
                           []).append(i)
-    if any(ebb_p2 > PALLAS_MAX_EBB for _, ebb_p2 in by_key):
-        return None
+    deep = any(ebb_p2 > PALLAS_MAX_EBB for _, ebb_p2 in by_key)
     results: list = [None] * n
-    for idxs in by_key.values():
+    for (_, ebb_p2), idxs in by_key.items():
         pats_il, txts_il, cos_il, fins_il = [], [], [], []
         for i in idxs:
             # task j -> lanes 2j (forward) and 2j+1 (reverse)
@@ -274,7 +224,8 @@ def hirschberg_level_splits_device(pats, txts, cos, mids, mids_r,
             fins_il += [int(mids[i]), int(mids_r[i])]
         batch = prepare_banded_batch(pats_il, txts_il, cos_il, full=False,
                                      text_finish=fins_il)
-        pll, sl, sr, ok = _hsplit_fused(batch, dev)
+        family = score_family(2 * len(idxs), ebb_p2) if deep else "fill"
+        pll, sl, sr, ok = _hsplit_fused(batch, dev, family)
         for j, i in enumerate(idxs):
             results[i] = ((int(pll[j]), int(sl[j]), int(sr[j]))
                           if ok[j] else None)
@@ -339,16 +290,20 @@ def align_batch_full(pairs, params: QuickedParams | None = None,
         return BatchResult(statuses, scores, cigars)
 
     if algo == QuickedAlgo.WINDOWED:
-        if not params.only_score:
-            raise NotImplementedError(
-                "WINDOWED with CIGARs needs the windowed full mode, not "
-                "ported yet (ROADMAP: windowed full mode)")
-        from quicked_tpu_torch.aligner.cascade import windowed_score_batch
-        sc, _ = windowed_score_batch(pats, txts, 0, params.window_size,
-                                     params.overlap_size, device=dev)
-        for j, i in enumerate(live):
-            statuses[i], scores[i], cigars[i] = _finish(
-                QuickedStatus.QUICKED_WIP, sc[j], None, True)
+        from quicked_tpu_torch.aligner.cascade import (windowed_full_batch,
+                                                       windowed_score_batch)
+        if params.only_score:
+            sc, _ = windowed_score_batch(pats, txts, 0, params.window_size,
+                                         params.overlap_size, device=dev)
+            for j, i in enumerate(live):
+                statuses[i], scores[i], cigars[i] = _finish(
+                    QuickedStatus.QUICKED_WIP, sc[j], None, True)
+        else:
+            ops = windowed_full_batch(pats, txts, params.window_size,
+                                      params.overlap_size, device=dev)
+            for j, i in enumerate(live):
+                statuses[i], scores[i], cigars[i] = _finish(
+                    QuickedStatus.QUICKED_WIP, None, ops[j], False)
         return BatchResult(statuses, scores, cigars)
 
     if algo == QuickedAlgo.HIRSCHBERG:

@@ -1,7 +1,8 @@
 """Batched QuickEd bound-and-align cascade on the card.
 
 The counterpart of quicked_tpu/aligner/cascade.py (`windowed_score_batch`,
-`quicked_cascade_batch`, `_cascade_staged`, `CascadeResult`): the staged
+`windowed_full_batch`, `quicked_cascade_batch`, `_cascade_staged`,
+`CascadeResult`): the staged
 lane, where the batch is re-partitioned between stages and every stage
 runs through the port's kernels (run_quicked, quicked.c:163-306):
 
@@ -25,6 +26,7 @@ from quicked_tpu_torch.aligner.batch import _next_pow2, banded_align_batch
 from quicked_tpu_torch.cigar import Cigar
 from quicked_tpu_torch.device import resolve_device
 from quicked_tpu_torch.ops.windowed_cuda import (prepare_windowed_batch,
+                                                 run_windowed_full,
                                                  run_windowed_score)
 from quicked_tpu_torch.params import QuickedParams, QuickedStatus
 from quicked_tpu_torch.utils.profiler import PhaseTimers
@@ -61,6 +63,30 @@ def windowed_score_batch(patterns, texts, hew_threshold: int,
         scores[idxs] = sc
         hews[idxs] = hw
     return scores, hews
+
+
+def windowed_full_batch(patterns, texts, window_size: int,
+                        overlap_size: int, device="cuda") -> list:
+    """Bucketed full-CIGAR windowed alignment; returns op strings in input
+    order. The counterpart of quicked_tpu/aligner/cascade.py
+    `windowed_full_batch` without its host C branch: every pair goes to
+    the card's kernel."""
+    dev = resolve_device(device)
+    out: list = [None] * len(patterns)
+    cols = W * window_size
+    by_key: dict = {}
+    for i in range(len(patterns)):
+        key = _next_pow2(max(len(patterns[i]), len(texts[i]), cols))
+        by_key.setdefault(key, []).append(i)
+    for idxs in by_key.values():
+        batch = prepare_windowed_batch(
+            [patterns[i] for i in idxs], [texts[i] for i in idxs],
+            window_size=window_size)
+        ops = run_windowed_full(batch, window_size, overlap_size,
+                                device=dev)
+        for j, i in enumerate(idxs):
+            out[i] = ops[j]
+    return out
 
 
 def quicked_cascade_batch(pairs, params: QuickedParams | None = None,

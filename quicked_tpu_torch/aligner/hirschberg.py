@@ -1,16 +1,14 @@
 """Batched Hirschberg worklist over the port's banded kernels.
 
 The counterpart of quicked_tpu/aligner/hirschberg.py (`hirschberg_batch`,
-`_splits_np`), with the same worklist: all pairs' subproblems run level
+`_level_splits`), with the same worklist: all pairs' subproblems run level
 by level. Base cases (band footprint <= the 16 MB budget,
 bpm_hirschberg.c:63-65) run through the full fill and the on-device
-traceback. A split level first tries the fused path
-(`batch.hirschberg_level_splits_device`: the fill and the split epilogue
-on the card, four numbers per task read back); a level with a band too
-deep for the fill runs one forward+reverse score batch through the
-deep-band kernels (`batch.banded_score_results`), and its midpoints are
-found on the host by `myers_np.hirschberg_split_fast`. Leaf
-CIGARs are assembled left to right by their recursion path.
+traceback. Every split level runs on the card
+(`batch.hirschberg_level_splits_device`: the forward and reverse half
+passes, through the fill or, for a deep band, the deep-band kernels, and
+the split epilogue; four numbers per task read back). Leaf CIGARs are
+assembled left to right by their recursion path.
 
 Failure semantics follow the reference's shared right-to-left buffer
 (bpm_hirschberg.c:210-243): on QUICKED_FAIL_NON_CONVERGENCE only the
@@ -25,15 +23,6 @@ from quicked_tpu_torch import dna
 from quicked_tpu_torch.device import resolve_device
 from quicked_tpu_torch.ops import myers_np
 from quicked_tpu_torch.params import HIRSCHBERG_BUFFER_SIZE, QuickedStatus
-
-
-def _splits_np(split, fwd, rev):
-    """Per-task midpoints (pll, score_l, score_r) or None."""
-    return [myers_np.hirschberg_split_fast(
-        f.pv64, f.mv64, f.first, f.last, f.scores_k,
-        r.pv64, r.mv64, r.first, r.last, r.scores_k,
-        f.prolog, len(t[3]), len(t[2]))
-        for t, f, r in zip(split, fwd, rev)]
 
 
 def _enc_raw(s):
@@ -99,15 +88,6 @@ def hirschberg_batch(texts, patterns, cutoffs, device="cuda"):
             mids_r = [len(t[2]) - m for t, m in zip(split, mids)]
             splits = ab.hirschberg_level_splits_device(
                 pats, txts, cos, mids, mids_r, device=dev)
-            if splits is None:
-                # forward and reverse half passes share geometry: one
-                # batch through the deep-band kernels
-                both = ab.banded_score_results(
-                    pats + [p[::-1] for p in pats],
-                    txts + [t[::-1] for t in txts],
-                    cos + cos, text_finish=mids + mids_r, device=dev)
-                fwd, rev = both[:len(split)], both[len(split):]
-                splits = _splits_np(split, fwd, rev)
             for t, mid, sp in zip(split, mids, splits):
                 i, path, text, pattern, cutoff, traw, praw = t
                 if sp is None:

@@ -6,26 +6,54 @@
 // hsplit_epilogue_tiled (the device twin of
 // myers_np.hirschberg_split_fast, i.e. the reference's
 // hirschberg_compute_score_row and split search, bpm_hirschberg.c:149-200).
-// Per task: (pattern_len_left, score_l, score_r, feasible).
+// Per task: (pattern_len_left, score_l, score_r, feasible); an infeasible
+// task's three split values are 0.
 //
-// Input: the score fill's outputs in place on the card, for a batch whose
+// Input: a score pass's outputs in place on the card, for a batch whose
 // lanes interleave the halves (lane 2j the forward pass of task j, lane
 // 2j+1 the reverse one): scores (K+1, 2n), Pv/Mv (EBB, 2n), first/last.
 //
-// Design: one CTA per task. The NC = EBB*64 + 64 cells of each half are
-// walked in chunks of blockDim: each thread reads one cell's Pv/Mv bit
-// (+1/-1 step; words outside the band read as reset, Pv=1 Mv=0), a
-// block-wide inclusive scan (warp shuffles, then the warp sums through
-// shared memory) gives the running score, and the two running scores go
-// to a per-task scratch row in device memory. A second pass forms
-// joint[i] = csr[n_cells-1-i] + cs[i] and keeps the first minimum by a
-// block-wide (value, index) reduction; one thread then reads the score
-// rows and writes the four results. Rows outside the score window use the
-// init formula (row+1)*64, as the XLA version does.
+// The function. cs[i] is the running score of the forward band from cell
+// bottom_cell over i cells (a cell steps +1 where Pv is set, -1 where Mv
+// is, +1 outside the band's words), csr[k] that of the reverse band from
+// higher_cell_r; the midpoint is the first argmin over i < n_cells of
+// joint[i] = csr[n_cells-1-i] + cs[i]. With G(m) the sum of the reverse
+// steps over the m cells walked DOWN from R0 = higher_cell_r + n_cells - 1,
+// csr[n_cells-1-i] = csr[n_cells] - G(i+1), so the argmin is that of
+// cs[i] - G(i+1): a forward walk up from bottom_cell and a reverse walk down
+// from R0, in step. Every value the split reads lies in blocks
+// [first, last] of its half (cs over cells bottom_cell..higher_cell, csr
+// over higher_cell_r..R0), so the deep-band kernels' contract (pv/mv exact
+// on [first, last] only) is enough.
 //
-// What bounds it on the H100: ~2*NC cells of scan and reduction per task,
-// a few microseconds; it replaces a device-to-host copy of the band planes
-// (16*EBB bytes per lane) and a host loop over the tasks.
+// What bounds it on the H100: nothing but latency. Per task it reads the
+// words of both spans (about 2 * 16 * n_cells / 64 bytes, at most
+// 32 * (EBB + 1)) and does ~1k operations a word; a level of 200 tasks at
+// EBB 244 is at most ~1.6 MB and ~5e7 operations, microseconds either way.
+//
+// Design (a CTA a task walking NC = EBB*64 + 64 cells a half whatever the
+// task's span, one cell a thread, with block-wide scans and the running
+// sums in a device-memory scratch, spent its time on cells no task reads):
+// - A warp walks a task's span only, one forward band word a lane, 32
+//   words a chunk. The lane's reverse word is the 64 reverse cells the
+//   reverse walk meets beside the lane's forward cells: two neighbouring
+//   words of the reverse lane, bit-reversed and funnel-shifted into line.
+// - Each lane sums its word's steps (masked popcounts, forward minus
+//   reverse), a warp scan gives every lane the walk's value at its word's
+//   first cell, and the lane walks its 64 cells in registers, keeping the
+//   first minimum as a key (value << 32 | index): the smaller key is the
+//   smaller value, then the lower index. A warp shuffle reduction keeps the
+//   least key. No running sum leaves the registers.
+// - Deep spans split into `wpt` warps a task (contiguous chunk ranges, each
+//   warp's values relative to its start); one lane adds the warps' totals
+//   in order and keeps the least key. Tasks pack `tpc` to a CTA; the
+//   wrapper picks both so a level spreads over the SMs.
+// - The two scores are differences of running sums within ~64 cells of the
+//   midpoint: one lane reads those few words again (L1/L2-hot) and sums
+//   them with masked popcounts.
+// Loads are direct: a task's words are 16 * n bytes apart (lane-minor
+// planes), but a level reads at most a few MB in all, once, and the time
+// is the walk's latency and the launch, not bytes.
 
 #include <climits>
 
@@ -34,62 +62,82 @@
 namespace {
 
 using qtt::W;
-constexpr int THREADS = 256;
-constexpr int MASKED = 1 << 30;    // joint value past n_cells
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_WARPS = 8;          // warps a CTA
+constexpr long long NO_KEY = LLONG_MAX;
+
+struct HsplitArgs {
+  const int32_t* scores;               // (K1, 2n)
+  const uint64_t *pv, *mv;             // (EBB, 2n)
+  const int32_t *first, *last;         // (2n,)
+  const int32_t *prolog, *plen, *tlen; // (n,), prolog of the forward lanes
+  int32_t *pll_out, *score_l_out, *score_r_out, *feasible_out;   // (n,)
+  int n, EBB, K1, wpt;
+};
 
 __device__ __forceinline__ int floordiv(int a, int b) {
   const int q = a / b;
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
-// +1/-1 score step of cell idx of a band: bit idx%64 of word idx/64
-__device__ __forceinline__ int cell_step(const uint64_t* __restrict__ pv,
-                                         const uint64_t* __restrict__ mv,
-                                         int lane, int B2, int EBB, int idx) {
-  const int blk = idx >> 6, cell = idx & 63;
-  if (blk < 0 || blk >= EBB) return 1;
-  const size_t at = (size_t)blk * B2 + lane;
-  return (int)((pv[at] >> cell) & 1ull) - (int)((mv[at] >> cell) & 1ull);
+// Bits lo..hi of a word (0 <= lo, hi <= 63); 0 if hi < lo.
+__device__ __forceinline__ uint64_t bits(int lo, int hi) {
+  return hi < lo ? 0ull : qtt::mask_le(hi) & ~((1ull << lo) - 1ull);
 }
 
-// block-wide inclusive sum of x; returns it and the block total
-__device__ __forceinline__ int block_scan(int x, int* warp_sum, int& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) warp_sum[warp] = x;
-  __syncthreads();
-  int before = 0;
-  total = 0;
-  for (int w = 0; w < THREADS / 32; ++w) {
-    if (w < warp) before += warp_sum[w];
-    total += warp_sum[w];
-  }
-  __syncthreads();
-  return x + before;
+// Word `blk` of a band lane; a block outside the band steps +1 (Pv set,
+// Mv clear), as the reset value the XLA version reads there.
+__device__ __forceinline__ uint64_t word(const uint64_t* __restrict__ p,
+                                         bool is_pv, int lane, int B2,
+                                         int EBB, int blk) {
+  if (blk < 0 || blk >= EBB) return is_pv ? qtt::ONES : 0ull;
+  return __ldg(p + (size_t)blk * B2 + lane);
 }
 
-__global__ void __launch_bounds__(THREADS) hsplit_kernel(
-    const int32_t* __restrict__ scores,   // (K1, 2n)
-    const uint64_t* __restrict__ pv,      // (EBB, 2n)
-    const uint64_t* __restrict__ mv,
-    const int32_t* __restrict__ first, const int32_t* __restrict__ last,
-    const int32_t* __restrict__ prolog,   // (n,) of the forward lanes
-    const int32_t* __restrict__ plen, const int32_t* __restrict__ tlen,
-    int32_t* __restrict__ scratch,        // (n, 2, NC+1)
-    int32_t* __restrict__ pll_out, int32_t* __restrict__ score_l_out,
-    int32_t* __restrict__ score_r_out, int32_t* __restrict__ feasible_out,
-    int n, int EBB, int K1) {
-  __shared__ int warp_sum[2][THREADS / 32];
-  __shared__ int best_v[THREADS / 32], best_i[THREADS / 32];
-  const int task = blockIdx.x, tid = threadIdx.x;
-  const int B2 = 2 * n, lf = 2 * task, lr = 2 * task + 1;
-  const int NC = EBB * W + W;
-  const int pro = prolog[task], pl = plen[task], tl = tlen[task];
-  const int f_first = first[lf], f_last = last[lf];
-  const int r_first = first[lr], r_last = last[lr];
+// Bit p: cell top - p, where top = 64 * (block of `hi`) + u and `lo` is the
+// word below `hi`.
+__device__ __forceinline__ uint64_t mirrored(uint64_t hi, uint64_t lo,
+                                             int u) {
+  const uint64_t h = __brevll(hi);
+  return u == 63 ? h : (h >> (63 - u)) | (__brevll(lo) << (u + 1));
+}
+
+// The sum of the steps of cells [c_lo, c_hi) of a band lane.
+__device__ int range_sum(const HsplitArgs& a, int lane, int c_lo, int c_hi) {
+  const int B2 = 2 * a.n;
+  int s = 0;
+  for (int c = c_lo; c < c_hi;) {
+    const int blk = c >> 6;              // floor, also below 0
+    const int end = min(c_hi, (blk + 1) * W);
+    const uint64_t m = bits(c & 63, end - 1 - blk * W);
+    s += __popcll(word(a.pv, true, lane, B2, a.EBB, blk) & m) -
+         __popcll(word(a.mv, false, lane, B2, a.EBB, blk) & m);
+    c = end;
+  }
+  return s;
+}
+
+// cs[x] - cs[y] of the running sum that starts at cell `base`.
+__device__ int cs_diff(const HsplitArgs& a, int lane, int base, int x,
+                       int y) {
+  return x >= y ? range_sum(a, lane, base + y, base + x)
+                : -range_sum(a, lane, base + x, base + y);
+}
+
+__global__ void __launch_bounds__(32 * MAX_WARPS) hsplit_kernel(
+    const HsplitArgs a) {
+  __shared__ long long s_key[MAX_WARPS];
+  __shared__ int s_total[MAX_WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wpt = a.wpt;
+  const int task = blockIdx.x * (blockDim.x / (32 * wpt)) + warp / wpt;
+  const int w = warp % wpt;
+  const bool live = task < a.n;
+  const int t = live ? task : 0;
+  const int B2 = 2 * a.n, lf = 2 * t, lr = 2 * t + 1;
+  const int pro = a.prolog[t], pl = a.plen[t], tl = a.tlen[t];
+  const int f_first = a.first[lf], f_last = a.last[lf];
+  const int r_first = a.first[lr], r_last = a.last[lr];
 
   const int text_mid = (tl + 1) / 2, text_mid_r = tl - text_mid;
   const int fb = text_mid < pro * W ? 0 : text_mid / W - pro;
@@ -110,106 +158,134 @@ __global__ void __launch_bounds__(THREADS) hsplit_kernel(
   const int higher_cell_r =
       use_f_high ? (pl - 1) - higher_pos - fb_r * W : r_first * W + 63;
   const int n_cells = higher_cell - bottom_cell + 2;
+  const int R0 = higher_cell_r + n_cells - 1;
 
-  // pass 1: running scores of both halves
-  int32_t* cs = scratch + (size_t)task * 2 * (NC + 1);
-  int32_t* csr = cs + NC + 1;
-  if (tid == 0) {
-    cs[0] = 0;
-    csr[0] = 0;
-  }
-  int carry_f = 0, carry_r = 0;
-  for (int c0 = 0; c0 < NC; c0 += THREADS) {
-    const int i = c0 + tid;
-    const int sf = i < NC ? cell_step(pv, mv, lf, B2, EBB, bottom_cell + i)
-                          : 0;
-    const int sr = i < NC ? cell_step(pv, mv, lr, B2, EBB, higher_cell_r + i)
-                          : 0;
-    int tot_f, tot_r;
-    const int inc_f = block_scan(sf, warp_sum[0], tot_f);
-    const int inc_r = block_scan(sr, warp_sum[1], tot_r);
-    if (i < NC) {
-      cs[i + 1] = carry_f + inc_f;
-      csr[i + 1] = carry_r + inc_r;
+  // the walk: this warp's chunks of 32 forward words
+  long long key = NO_KEY;
+  int carry = 0;
+  if (live && feasible && n_cells > 0) {
+    const int bf_lo = bottom_cell >> 6;
+    const int nch = ((((bottom_cell + n_cells - 1) >> 6) - bf_lo) >> 5) + 1;
+    const int per = (nch + wpt - 1) / wpt;
+    const int ch_end = min(nch, (w + 1) * per);
+    for (int ch = w * per; ch < ch_end; ++ch) {
+      const int bf = bf_lo + 32 * ch + lane;
+      const int i_lo = W * bf - bottom_cell;     // walk index of bit 0
+      const int lo = max(0, -i_lo);
+      const int hi_j = min(63, n_cells - 1 - i_lo);   // joint candidates
+      const uint64_t fmask = bits(lo, min(63, n_cells - 2 - i_lo));
+      const uint64_t jmask = bits(lo, hi_j);
+      const uint64_t fp = word(a.pv, true, lf, B2, a.EBB, bf) & fmask;
+      const uint64_t fm = word(a.mv, false, lf, B2, a.EBB, bf) & fmask;
+      const int top = R0 - i_lo, rb = top >> 6, u = top & 63;
+      const uint64_t rp =
+          mirrored(word(a.pv, true, lr, B2, a.EBB, rb),
+                   word(a.pv, true, lr, B2, a.EBB, rb - 1), u) & jmask;
+      const uint64_t rm =
+          mirrored(word(a.mv, false, lr, B2, a.EBB, rb),
+                   word(a.mv, false, lr, B2, a.EBB, rb - 1), u) & jmask;
+      const int d = __popcll(fp) - __popcll(fm) - __popcll(rp) +
+                    __popcll(rm);
+      int incl = d;
+#pragma unroll
+      for (int k = 1; k < 32; k <<= 1) {
+        const int y = __shfl_up_sync(FULL, incl, k);
+        if (lane >= k) incl += y;
+      }
+      if (jmask) {
+        int acc = carry + incl - d;       // the walk's value before bit 0
+        int bv = INT_MAX, bp = 0;
+#pragma unroll
+        for (int p = 0; p < 64; ++p) {
+          acc += (int)((rm >> p) & 1ull) - (int)((rp >> p) & 1ull);
+          if (p >= lo && p <= hi_j && acc < bv) {
+            bv = acc;
+            bp = p;
+          }
+          acc += (int)((fp >> p) & 1ull) - (int)((fm >> p) & 1ull);
+        }
+        // a later chunk's index is higher: min keeps the first minimum
+        key = min(key, (long long)bv * 4294967296ll + (i_lo + bp));
+      }
+      carry += __shfl_sync(FULL, incl, 31);
     }
-    carry_f += tot_f;
-    carry_r += tot_r;
   }
-  __syncthreads();
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1)
+    key = min(key, __shfl_xor_sync(FULL, key, k));
 
-  // pass 2: first argmin of joint[i] = csr[n_cells-1-i] + cs[i]
-  int bv = INT_MAX, bi = INT_MAX;
-  for (int i = tid; i < NC; i += THREADS) {
-    int v = MASKED;
-    if (i < n_cells)
-      v = csr[min(max(n_cells - 1 - i, 0), NC)] + cs[i];
-    if (v < bv) {          // i grows per thread: the first one wins ties
-      bv = v;
-      bi = i;
+  if (wpt > 1) {
+    // the task's warps in order: each one's values are relative to its
+    // first cell, so add the totals of the warps before it
+    if (lane == 0) {
+      s_key[warp] = key;
+      s_total[warp] = carry;
+    }
+    __syncthreads();
+    if (w != 0) return;
+    int off = 0;
+    key = NO_KEY;
+    for (int v = 0; v < wpt; ++v) {
+      const long long k = s_key[warp + v];
+      if (k != NO_KEY) key = min(key, k + (long long)off * 4294967296ll);
+      off += s_total[warp + v];
     }
   }
-  for (int d = 16; d > 0; d >>= 1) {
-    const int ov = __shfl_down_sync(0xffffffffu, bv, d);
-    const int oi = __shfl_down_sync(0xffffffffu, bi, d);
-    if (ov < bv || (ov == bv && oi < bi)) {
-      bv = ov;
-      bi = oi;
-    }
+  if (!live || lane != 0) return;
+
+  if (!feasible) {
+    a.pll_out[task] = a.score_l_out[task] = a.score_r_out[task] = 0;
+    a.feasible_out[task] = 0;
+    return;
   }
-  if ((tid & 31) == 0) {
-    best_v[tid >> 5] = bv;
-    best_i[tid >> 5] = bi;
-  }
-  __syncthreads();
-  if (tid != 0) return;
-  for (int w = 1; w < THREADS / 32; ++w) {
-    if (best_v[w] < bv || (best_v[w] == bv && best_i[w] < bi)) {
-      bv = best_v[w];
-      bi = best_i[w];
-    }
-  }
-  const int smaller_pos = bi;
-  const int pll = starting_pos + smaller_pos;
-  auto cs_at = [&](const int32_t* a, int idx) {
-    return a[min(max(min(max(idx, 0), n_cells), 0), NC)];
-  };
-  auto score_row = [&](int lane, int row) {
+  // no candidate (n_cells <= 0): the first of all-masked values, index 0
+  const int sp = key == NO_KEY ? 0 : (int)(key & 0xffffffffll);
+  const int pll = starting_pos + sp;
+  auto clamp_cells = [&](int idx) { return min(max(idx, 0), n_cells); };
+  auto score_row = [&](int ln, int row) {
     const int r = row + pro;
-    if (r >= 0 && r < K1) return scores[(size_t)r * B2 + lane];
+    if (r >= 0 && r < a.K1) return a.scores[(size_t)r * B2 + ln];
     return (row + 1) * W;
   };
   const int block_ref =
-      floordiv(pll + W - 1, W) - (n_cells < smaller_pos + W ? 1 : 0);
+      floordiv(pll + W - 1, W) - (n_cells < sp + W ? 1 : 0);
   const int score_pos_l = block_ref * W - (bottom_cell + fb * W);
-  const int score_l = cs_at(cs, smaller_pos) - cs_at(cs, score_pos_l) +
+  const int score_l = cs_diff(a, lf, bottom_cell, sp,
+                              clamp_cells(score_pos_l)) +
                       score_row(lf, block_ref - 1);
   const int plr = pl - pll;
-  const int block_ref_r =
-      floordiv(plr + W - 1, W) - (smaller_pos < W ? 1 : 0);
+  const int block_ref_r = floordiv(plr + W - 1, W) - (sp < W ? 1 : 0);
   const int score_pos_r = block_ref_r * W - (higher_cell_r + fb_r * W);
-  const int score_r = cs_at(csr, n_cells - 1 - smaller_pos) -
-                      cs_at(csr, score_pos_r) + score_row(lr, block_ref_r - 1);
-  pll_out[task] = pll;
-  score_l_out[task] = score_l;
-  score_r_out[task] = score_r;
-  feasible_out[task] = feasible ? 1 : 0;
+  const int score_r = cs_diff(a, lr, higher_cell_r, n_cells - 1 - sp,
+                              clamp_cells(score_pos_r)) +
+                      score_row(lr, block_ref_r - 1);
+  a.pll_out[task] = pll;
+  a.score_l_out[task] = score_l;
+  a.score_r_out[task] = score_r;
+  a.feasible_out[task] = 1;
 }
 
 }  // namespace
 
+// wpt: warps a task (1, 2, 4 or 8); tpc: tasks a CTA, wpt * tpc <= 8.
 extern "C" int qtt_hirschberg_split(const void* scores, const void* pv,
                                     const void* mv, const void* first,
                                     const void* last, const void* prolog,
                                     const void* plen, const void* tlen,
-                                    void* scratch, void* pll, void* score_l,
-                                    void* score_r, void* feasible, int n,
-                                    int EBB, int K1, void* stream) {
+                                    void* pll, void* score_l, void* score_r,
+                                    void* feasible, int n, int EBB, int K1,
+                                    int wpt, int tpc, void* stream) {
   if (n <= 0) return 0;
-  hsplit_kernel<<<n, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)scores, (const uint64_t*)pv, (const uint64_t*)mv,
-      (const int32_t*)first, (const int32_t*)last, (const int32_t*)prolog,
-      (const int32_t*)plen, (const int32_t*)tlen, (int32_t*)scratch,
-      (int32_t*)pll, (int32_t*)score_l, (int32_t*)score_r,
-      (int32_t*)feasible, n, EBB, K1);
+  if (wpt < 1 || wpt > MAX_WARPS || (wpt & (wpt - 1)) || tpc < 1 ||
+      wpt * tpc > MAX_WARPS || EBB < 1 || K1 < 1)
+    return (int)cudaErrorInvalidValue;
+  HsplitArgs a{(const int32_t*)scores, (const uint64_t*)pv,
+               (const uint64_t*)mv, (const int32_t*)first,
+               (const int32_t*)last, (const int32_t*)prolog,
+               (const int32_t*)plen, (const int32_t*)tlen, (int32_t*)pll,
+               (int32_t*)score_l, (int32_t*)score_r, (int32_t*)feasible,
+               n, EBB, K1, wpt};
+  hsplit_kernel<<<(n + tpc - 1) / tpc, 32 * wpt * tpc, 0,
+                  (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

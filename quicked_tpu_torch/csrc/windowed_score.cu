@@ -1,10 +1,13 @@
-// Windowed score bound (score-only mode) with the high-error-window count.
+// Windowed score bound (score-only mode) with the high-error-window count,
+// and the windowed full-CIGAR mode.
 //
-// Replaces quicked_tpu/ops/windowed_jax.py:windowed_scan_impl in score
-// mode (an XLA while-loop on the TPU), i.e. the reference's
-// windowed_compute + windowed_backtrace_score_only
-// (bpm_windowed.c:504-628): tie-break D, I, M, X with raw-character M
-// tests; pattern pad -2 and text pad -1 never match.
+// Replaces quicked_tpu/ops/windowed_jax.py:windowed_scan_impl (an XLA
+// while-loop on the TPU) in both modes, i.e. the reference's
+// windowed_compute with windowed_backtrace_score_only
+// (bpm_windowed.c:504-628: tie-break D, I, M, X) or windowed_backtrace
+// (bpm_windowed.c:448-502: tie-break M, D, I, X, a D step only where the
+// cell does not match); raw-character M tests, pattern pad -2 and text pad
+// -1 never match.
 //
 // What bounds it on the H100: each pair is a long chain of dependent
 // steps (per window 64*ws columns of ws Myers advances, then a greedy
@@ -48,6 +51,11 @@
 //   the case of no D-run (the common one) are loaded together, so a
 //   column costs one shared-memory latency unless a D-run moves the
 //   cursor.
+// - Full mode (FULLM) runs the same fill; its walk steps a D-run row by
+//   row (a D needs Pv set and no match, so the run is not one word's
+//   highest zero bit) and writes one (d_run int16, opcode int8) record
+//   per walked column, pair-major (B, MW, COLS) into buffers the wrapper
+//   zeroes, and each pair's final cursor.
 // The inputs arrive pair-major (the wrapper transposes the staged
 // lane-minor batch), so a segment's staging loads are contiguous.
 
@@ -66,9 +74,12 @@ struct WindowedArgs {
   const int32_t* pat_raw;    // (B, P)
   const int32_t *plen, *tlen, *num_words;   // (B,)
   uint8_t* scratch;          // (B, pair_bytes) in scratch mode, else null
-  int32_t *score_out, *hew_out;             // (B,)
+  int32_t *score_out, *hew_out;             // (B,), score mode
   int B, KP, T, P, WS, OVL, hew_cells, span;
   size_t pair_bytes;         // a pair's shared (or scratch) region
+  int16_t* rec_run;          // (B, MW, COLS), full mode
+  int8_t* rec_op;            // (B, MW, COLS), full mode
+  int32_t *pos_v_out, *pos_h_out;           // (B,), full mode
 };
 
 // Per pair, shared mode: Pv after and Mv before each column (u64,
@@ -95,9 +106,8 @@ __device__ __forceinline__ uint64_t load_chars(const uint8_t* te, int k) {
   return c;
 }
 
-template <bool SMEM>
-__global__ void __launch_bounds__(32) windowed_score_kernel(
-    const WindowedArgs a) {
+template <bool SMEM, bool FULLM>
+__global__ void __launch_bounds__(32) windowed_kernel(const WindowedArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
   // each lane's block's shifted PEQ words, indexed by the character: a
   // load, where a select over five registers branches, and the lanes of a
@@ -222,10 +232,47 @@ __global__ void __launch_bounds__(32) windowed_score_kernel(
       __syncwarp();
     }
 
+    // full mode: greedy backtrace, tie-break M, D, I, X, one record per
+    // walked column (the loop's bounds as below)
+    if (FULLM && act && sl == 0) {
+      const int v_ovl_rel = max(pos_v - W * (WS - a.OVL) + 1, 0) - v_min;
+      const int h_ovl_rel = max(pos_h - W * (WS - a.OVL) + 1, 0) - h_min;
+      const size_t rec = ((size_t)b * max_windows + it) * COLS;
+      int16_t* rr = a.rec_run + rec;
+      int8_t* ro = a.rec_op + rec;
+      int vr = pos_v - v_min, hr = pos_h - h_min;
+      while (hr >= 0 && vr >= v_ovl_rel && hr >= h_ovl_rel) {
+        const int tp = hr;
+        const int tc = tr[tp];
+        const int max_run = vr - v_ovl_rel + 1;
+        int run = 0, v = vr;
+        uint64_t pw = pv[(v >> 6) * COLS + tp];
+        // the D-run: Pv set and no match, from the cursor down
+        while (run < max_run && ((pw >> (v & 63)) & 1ull) && pr[v] != tc) {
+          ++run;
+          --v;
+          if ((v & 63) == 63 && run < max_run) pw = pv[(v >> 6) * COLS + tp];
+        }
+        rr[tp] = (int16_t)run;
+        if (run == max_run) {      // the window's exit, mid-run
+          vr = v;
+          break;
+        }
+        const bool is_m = pr[v] == tc;
+        const bool is_i =
+            !is_m && ((mv[(v >> 6) * COLS + tp] >> (v & 63)) & 1ull);
+        ro[tp] = is_m ? 1 : (is_i ? 3 : 4);
+        vr = v - (is_i ? 0 : 1);
+        hr -= 1;
+      }
+      pos_v = v_min + vr;
+      pos_h = h_min + hr;
+    }
+
     // greedy backtrace, score-only tie-break D, I, M, X. In the loop
     // 0 <= v_ovl_rel <= vr < COLS, and a D-run that does not exit the
     // window stops above v_ovl_rel, so no index needs clamping.
-    if (act && sl == 0) {
+    if (!FULLM && act && sl == 0) {
       const int v_ovl_rel = max(pos_v - W * (WS - a.OVL) + 1, 0) - v_min;
       const int h_ovl_rel = max(pos_h - W * (WS - a.OVL) + 1, 0) - h_min;
       int vr = pos_v - v_min, hr = pos_h - h_min, sc = 0;
@@ -284,13 +331,44 @@ __global__ void __launch_bounds__(32) windowed_score_kernel(
     pos_h = __shfl_sync(FULL, pos_h, seg * span);
     __syncwarp();
   }
-  if (live && sl == 0) {
+  if (FULLM && live && sl == 0) {
+    // the boundary runs are the host's (expand_window_records)
+    a.pos_v_out[b] = pos_v;
+    a.pos_h_out[b] = pos_h;
+  }
+  if (!FULLM && live && sl == 0) {
     // boundary fill (bpm_windowed.c:599-627, score-only accounting)
     if (pos_h >= 0) score += pos_h + 1;
     if (pos_v >= 0) score += pos_v + 1;
     a.score_out[b] = score;
     a.hew_out[b] = hew;
   }
+}
+
+template <bool FULLM>
+int launch_windowed(WindowedArgs a, int shared_bytes, cudaStream_t s) {
+  const int span = a.span, WS = a.WS;
+  const bool pow2 = span >= 1 && span <= 32 && (span & (span - 1)) == 0;
+  if (WS < 1 || !pow2 || span < (WS < 32 ? WS : 32) || a.T < W * WS ||
+      a.P < W * WS)
+    return (int)cudaErrorInvalidValue;
+  const int ppw = 32 / span;
+  const int blocks = (a.B + ppw - 1) / ppw;
+  if (shared_bytes > 0) {
+    a.pair_bytes = shared_pair_bytes(WS);
+    if ((size_t)shared_bytes != ppw * a.pair_bytes)
+      return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        windowed_kernel<true, FULLM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (e != cudaSuccess) return (int)e;
+    windowed_kernel<true, FULLM><<<blocks, 32, shared_bytes, s>>>(a);
+  } else {
+    if (!a.scratch) return (int)cudaErrorInvalidValue;
+    a.pair_bytes = scratch_pair_bytes(WS);
+    windowed_kernel<false, FULLM><<<blocks, 32, 0, s>>>(a);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -308,34 +386,35 @@ extern "C" int qtt_windowed_score(const void* peq, const void* text_enc,
                                   int hew_cells, int span, int shared_bytes,
                                   void* stream) {
   if (B <= 0) return 0;
-  const bool pow2 = span >= 1 && span <= 32 && (span & (span - 1)) == 0;
-  if (WS < 1 || !pow2 || span < (WS < 32 ? WS : 32) || T < W * WS ||
-      P < W * WS)
-    return (int)cudaErrorInvalidValue;
-  const int ppw = 32 / span;
   WindowedArgs a{(const uint64_t*)peq, (const uint8_t*)text_enc,
                  (const int32_t*)text_raw, (const int32_t*)pat_raw,
                  (const int32_t*)plen, (const int32_t*)tlen,
                  (const int32_t*)num_words, (uint8_t*)scratch,
                  (int32_t*)score, (int32_t*)hew, B, KP, T, P, WS, OVL,
-                 hew_cells, span, 0};
-  const int blocks = (B + ppw - 1) / ppw;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (shared_bytes > 0) {
-    a.pair_bytes = shared_pair_bytes(WS);
-    if ((size_t)shared_bytes != ppw * a.pair_bytes)
-      return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(
-        windowed_score_kernel<true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
-    if (e != cudaSuccess) return (int)e;
-    windowed_score_kernel<true><<<blocks, 32, shared_bytes, s>>>(a);
-  } else {
-    if (!scratch) return (int)cudaErrorInvalidValue;
-    a.pair_bytes = scratch_pair_bytes(WS);
-    windowed_score_kernel<false><<<blocks, 32, 0, s>>>(a);
-  }
-  return (int)cudaGetLastError();
+                 hew_cells, span, 0, nullptr, nullptr, nullptr, nullptr};
+  return launch_windowed<false>(a, shared_bytes, (cudaStream_t)stream);
+}
+
+// The full mode: the same launch geometry; rec_run (int16) and rec_op
+// (int8) are (B, MW, 64 * WS), zeroed by the caller, with MW =
+// ceil((P + T) / (64 * max(WS - OVL, 1))) + 2; pos_v and pos_h (B,).
+extern "C" int qtt_windowed_full(const void* peq, const void* text_enc,
+                                 const void* text_raw, const void* pat_raw,
+                                 const void* plen, const void* tlen,
+                                 const void* num_words, void* scratch,
+                                 void* rec_run, void* rec_op, void* pos_v,
+                                 void* pos_h, int B, int KP, int T, int P,
+                                 int WS, int OVL, int span, int shared_bytes,
+                                 void* stream) {
+  if (B <= 0) return 0;
+  WindowedArgs a{(const uint64_t*)peq, (const uint8_t*)text_enc,
+                 (const int32_t*)text_raw, (const int32_t*)pat_raw,
+                 (const int32_t*)plen, (const int32_t*)tlen,
+                 (const int32_t*)num_words, (uint8_t*)scratch, nullptr,
+                 nullptr, B, KP, T, P, WS, OVL, 0, span, 0,
+                 (int16_t*)rec_run, (int8_t*)rec_op, (int32_t*)pos_v,
+                 (int32_t*)pos_h};
+  return launch_windowed<true>(a, shared_bytes, (cudaStream_t)stream);
 }
 
 // The most dynamic shared memory a CTA of the shared-mode kernel may take
@@ -346,7 +425,7 @@ extern "C" int qtt_windowed_max_shared(int device, int* bytes) {
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes fa;
-  e = cudaFuncGetAttributes(&fa, windowed_score_kernel<true>);
+  e = cudaFuncGetAttributes(&fa, windowed_kernel<true, false>);
   if (e != cudaSuccess) return (int)e;
   *bytes = optin - (int)fa.sharedSizeBytes;
   return 0;

@@ -1,6 +1,6 @@
-"""Time the windowed score, banded traceback and deep-band score kernels
-of another checkout of this repository against this one's, in turns on
-one card, at the shapes the aligner hands them.
+"""Time the windowed score, banded traceback, deep-band score and
+Hirschberg split kernels of another checkout of this repository against
+this one's, in turns on one card, at the shapes the aligner hands them.
 
     python3 -m quicked_tpu_torch.kernel_ab OTHER [--pairs N] [--length L]
                                            [--long-pairs N] [--long-length L]
@@ -11,22 +11,26 @@ root of the other checkout, for example the parent commit unpacked with
 slices (N pairs x L bp and the long-read pairs, made from the same seeds)
 are aligned once by this checkout while chip_smoke's `Recorder` keeps
 every windowed batch, one traceback chunk (the 10 kbp run's largest, the
-long-read run's first) and every host `BandedBatch` the route sends to a
+long-read run's first), every host `BandedBatch` the route sends to a
 deep-band kernel (the long-read run's stage 3 and split level 1 on the
 systolic kernel; the carry-scan kernel on BANDED score-only over 16 pairs
-x 30 kbp, also recorded). The other checkout's package is then imported
-in place of this one, so that its own wrappers launch its own kernels,
-built from its sources into its own build/ directory: only the wrappers'
-Python signatures, `windowed_score_staged(st, ws, ovl, hew_cells)`,
-`traceback_records(mat_pv, mat_mv, praw, traw, plen, tlen, prolog)`,
-`stage_banded(batch, device)`, `sysband_raw(st)` and `cscan_staged(st)`,
-must agree; each checkout stages a deep-band batch with its own
+x 30 kbp, also recorded) and the arguments of every split epilogue call
+(the long-read run's three split levels). The other checkout's package
+is then imported in place of this one, so that its own wrappers launch
+its own kernels, built from its sources into its own build/ directory:
+only the wrappers' Python signatures, `windowed_score_staged(st, ws, ovl,
+hew_cells)`, `traceback_records(mat_pv, mat_mv, praw, traw, plen, tlen,
+prolog)`, `stage_banded(batch, device)`, `sysband_raw(st)`,
+`cscan_staged(st)` and `hirschberg_split(out, prolog, plen, tlen)`, must
+agree; each checkout stages a deep-band batch with its own
 `stage_banded`, so the staged layouts need not. Each recorded batch goes
 through both, the outputs must be equal (the systolic pass's ABORT flags,
 and its other lanes under its contract: scores, first and last, pv/mv on
-[first, last]), and both are timed by CUDA events in turns (other, this,
-this, other), the median of 3 runs each. Exits non-zero if the outputs
-differ.
+[first, last]; the split's feasibility flags, and its values on the
+feasible tasks), and both are timed by CUDA events in turns (other, this,
+this, other), the median of 3 runs each; the split, shorter than its
+wrapper's host time, by its kernel's device time (torch.profiler), in the
+same turns. Exits non-zero if the outputs differ.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ MODULES = {"windowed_score_staged": "windowed_cuda",
            "traceback_records": "banded_traceback_cuda",
            "stage_banded": "banded_cuda",
            "sysband_raw": "banded_sysband_cuda",
-           "cscan_staged": "banded_cscan_cuda"}
+           "cscan_staged": "banded_cscan_cuda",
+           "hirschberg_split": "hirschberg_split_cuda"}
 
 
 def load_other(root: str) -> dict:
@@ -72,13 +77,15 @@ def load_other(root: str) -> dict:
     return fns
 
 
-def turns(name, shape, other, this, differ=None):
-    """Outputs of both equal (or `differ(a, b)` false), then CUDA-event
-    medians in turns; False if the outputs differ."""
+def turns(name, shape, other, this, differ=None, timer=None):
+    """Outputs of both equal (or `differ(a, b)` false), then medians in
+    turns by `timer(fn)` (CUDA events by default); False if the outputs
+    differ."""
     import torch
 
     from chip_smoke import cuda_ms
 
+    timer = timer or (lambda f: cuda_ms(f, 3))
     a, b = other(), this()
     torch.cuda.synchronize()
     if differ is None:
@@ -88,7 +95,7 @@ def turns(name, shape, other, this, differ=None):
     if bad:
         print(f"[A/B] {name} ({shape}): outputs differ")
         return False
-    t = [cuda_ms(f, 3) for f in (other, this, this, other)]
+    t = [timer(f) for f in (other, this, this, other)]
     print(f"[A/B] {name} ({shape}): other {t[0]:.3f} / {t[3]:.3f} ms, this "
           f"{t[1]:.3f} / {t[2]:.3f} ms, outputs equal")
     return True
@@ -110,6 +117,34 @@ def cscan_differ(a, b):
     import torch
 
     return any(not torch.equal(a[k], b[k]) for k in b)
+
+
+def hsplit_differ(a, b):
+    """Two splits differ: other feasibility flags, or another value on a
+    feasible task (an infeasible task's values are unspecified in earlier
+    versions of the kernel)."""
+    import torch
+
+    ok = b[3].bool()
+    return not torch.equal(a[3], b[3]) or any(
+        not torch.equal(x[ok], y[ok]) for x, y in zip(a[:3], b[:3]))
+
+
+def hsplit_turns(tag, rec, other) -> bool:
+    """Every recorded split epilogue call through the other checkout's
+    kernel and this one's, on the same score pass outputs."""
+    from chip_smoke import device_ms
+    from quicked_tpu_torch.ops import hirschberg_split_cuda as hs
+
+    ok = True
+    for i, args in enumerate(rec.hsplit):
+        EBB, lanes = args[0]["pv"].shape
+        ok &= turns(f"hsplit_{tag}_{i + 1}",
+                    f"{lanes // 2} tasks, EBB {EBB}",
+                    lambda: other["hirschberg_split"](*args),
+                    lambda: hs.hirschberg_split(*args), hsplit_differ,
+                    lambda f: device_ms(f, "hsplit_kernel"))
+    return ok
 
 
 def deep_turns(tag, rec, other) -> bool:
@@ -187,6 +222,7 @@ def main(argv=None) -> int:
                     lambda: other_traceback(*chunk),
                     lambda: btc.traceback_records(*chunk))
         ok &= deep_turns(tag, rec, other)
+        ok &= hsplit_turns(tag, rec, other)
     ok &= deep_turns("banded", banded, other)
     return 0 if ok else 1
 

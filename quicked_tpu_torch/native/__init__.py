@@ -149,6 +149,10 @@ def _load():
         lib.qh_windowed_score.restype = _i64
         lib.qh_windowed_score.argtypes = [
             _u8p, _u8p, _i64, _u8p, _u8p, _i64, _i64, _i64, _i64, _i64p]
+        lib.qh_windowed_full.restype = _i64
+        lib.qh_windowed_full.argtypes = [
+            _u8p, _u8p, _i64, _u8p, _u8p, _i64, _i64, _i64,
+            ctypes.c_char_p]
         _u16p = ctypes.POINTER(ctypes.c_uint16)
         _i8p = ctypes.POINTER(ctypes.c_int8)
         _i32p = ctypes.POINTER(ctypes.c_int32)
@@ -309,6 +313,25 @@ def windowed_score(pattern_enc: np.ndarray, pattern_raw: bytes,
         t.ctypes.data_as(_u8p), _u8bytes(text_raw), len(t),
         window_size, overlap_size, hew_threshold, ctypes.byref(hew)))
     return score, int(hew.value)
+
+
+def windowed_full(pattern_enc: np.ndarray, pattern_raw: bytes,
+                  text_enc: np.ndarray, text_raw: bytes,
+                  window_size: int, overlap_size: int) -> str:
+    """Host-native WindowEd full-CIGAR mode. Returns the op string."""
+    if window_size > 16:
+        raise ValueError(
+            f"native windowed kernel supports window_size <= 16 "
+            f"(got {window_size}); use the device/python path")
+    lib = _load()
+    p = np.ascontiguousarray(pattern_enc, dtype=np.uint8)
+    t = np.ascontiguousarray(text_enc, dtype=np.uint8)
+    ops = ctypes.create_string_buffer(len(p) + len(t) + 1)
+    n = lib.qh_windowed_full(
+        p.ctypes.data_as(_u8p), _u8bytes(pattern_raw), len(p),
+        t.ctypes.data_as(_u8p), _u8bytes(text_raw), len(t),
+        window_size, overlap_size, ops)
+    return ops.raw[:n].decode("ascii")
 
 
 def run_banded_native(batch):

@@ -24,24 +24,22 @@ from quicked_tpu_torch.device import check_cuda, stream_ptr
 W = 64
 MASKED = 1 << 30
 
-HSPLIT = Kernel("qtt_hirschberg_split", [P] * 13 + [I] * 3 + [P])
+HSPLIT = Kernel("qtt_hirschberg_split", [P] * 12 + [I] * 5 + [P])
+MAX_WARPS = 8       # warps a CTA of the kernel
 
 
-def hirschberg_split_torch(out: dict, prolog, plen, tlen):
-    """Plain version: hirschberg_split_batch over the interleaved lanes.
-    prolog: the forward lanes' prolog; plen/tlen: each task's pattern and
-    text lengths; all (n,). Returns (pll, score_l, score_r, feasible),
-    (n,) int32 each (feasible 0/1; an infeasible task's split values are
-    unspecified)."""
-    pv, mv, scores = out["pv"], out["mv"], out["scores_by_k"].long()
-    EBB = pv.shape[0]
-    NC = EBB * W + W
+def split_geometry(out: dict, prolog, plen, tlen) -> dict:
+    """Per task, the split's geometry from the half passes' first/last
+    (hirschberg_split_batch's prologue): feasible, fb, fb_r, bottom_cell
+    (the forward running sum's first cell), starting_pos, higher_cell_r
+    (the reverse one's) and n_cells, (n,) int64 tensors (feasible bool).
+    The split reads the forward band on cells bottom_cell ..
+    bottom_cell + n_cells - 2 and the reverse band on higher_cell_r ..
+    higher_cell_r + n_cells - 1, all in blocks [first, last] of the lane
+    when the task is feasible."""
     pro, plen, tlen = prolog.long(), plen.long(), tlen.long()
     f_first, r_first = out["first"][0::2].long(), out["first"][1::2].long()
     f_last, r_last = out["last"][0::2].long(), out["last"][1::2].long()
-    n = pro.shape[0]
-    dev = pv.device
-
     text_mid = (tlen + 1) // 2
     text_mid_r = tlen - text_mid
     fb = torch.where(text_mid < pro * W, 0, text_mid // W - pro)
@@ -61,7 +59,27 @@ def hirschberg_split_torch(out: dict, prolog, plen, tlen):
     higher_cell_r = torch.where(use_f_high,
                                 (plen - 1) - higher_pos - fb_r * W,
                                 r_first * W + 63)
-    n_cells = higher_cell - bottom_cell + 2
+    return dict(feasible=feasible, fb=fb, fb_r=fb_r, bottom_cell=bottom_cell,
+                starting_pos=starting_pos, higher_cell_r=higher_cell_r,
+                n_cells=higher_cell - bottom_cell + 2)
+
+
+def hirschberg_split_torch(out: dict, prolog, plen, tlen):
+    """Plain version: hirschberg_split_batch over the interleaved lanes.
+    prolog: the forward lanes' prolog; plen/tlen: each task's pattern and
+    text lengths; all (n,). Returns (pll, score_l, score_r, feasible),
+    (n,) int32 each (feasible 0/1; an infeasible task's split values are
+    0)."""
+    pv, mv, scores = out["pv"], out["mv"], out["scores_by_k"].long()
+    EBB = pv.shape[0]
+    NC = EBB * W + W
+    pro, plen = prolog.long(), plen.long()
+    n = pro.shape[0]
+    dev = pv.device
+    g = split_geometry(out, prolog, plen, tlen)
+    feasible, fb, fb_r = g["feasible"], g["fb"], g["fb_r"]
+    bottom_cell, starting_pos = g["bottom_cell"], g["starting_pos"]
+    higher_cell_r, n_cells = g["higher_cell_r"], g["n_cells"]
     steps = torch.arange(NC, device=dev)[:, None]
 
     def cell_cumsum(pvw, mvw, start):
@@ -102,7 +120,20 @@ def hirschberg_split_torch(out: dict, prolog, plen, tlen):
     score_pos_r = block_ref_r * W - (higher_cell_r + fb_r * W)
     score_r = cs_at(csr, n_cells - 1 - smaller_pos) - \
         cs_at(csr, score_pos_r) + score_row(scores[:, 1::2], block_ref_r - 1)
-    return tuple(x.int() for x in (pll, score_l, score_r, feasible))
+    return tuple(torch.where(feasible, x, 0).int()
+                 for x in (pll, score_l, score_r)) + (feasible.int(),)
+
+
+def hsplit_launch(n: int, EBB: int, sms: int) -> tuple[int, int]:
+    """(warps a task, tasks a CTA) of the kernel for n tasks whose bands
+    are EBB blocks deep on a card of `sms` SMs: a warp walks at most 4
+    chunks of 32 words of a span (at most EBB + 1 words) unless a task
+    has MAX_WARPS warps already; as many tasks to a CTA as MAX_WARPS
+    allows while the level still spans the SMs."""
+    chunks = -(-(EBB + 1) // 32)
+    wpt = min(MAX_WARPS, 1 << (-(-chunks // 4) - 1).bit_length())
+    tpc = max(1, min(MAX_WARPS // wpt, n // sms))
+    return wpt, tpc
 
 
 def _launch_hsplit(out: dict, prolog, plen, tlen):
@@ -112,8 +143,6 @@ def _launch_hsplit(out: dict, prolog, plen, tlen):
     if B2 != 2 * n or prolog.shape != (n,):
         raise ValueError("split epilogue needs 2 interleaved lanes per task")
     dev = pv.device
-    NC = EBB * W + W
-    scratch = torch.empty((n, 2, NC + 1), dtype=torch.int32, device=dev)
     res = [torch.empty((n,), dtype=torch.int32, device=dev)
            for _ in range(4)]
     ints = [out["scores_by_k"], out["first"], out["last"], prolog, plen,
@@ -122,10 +151,12 @@ def _launch_hsplit(out: dict, prolog, plen, tlen):
         raise ValueError("scores, first/last and task scalars must be int32")
     args = [out["scores_by_k"], pv, out["mv"], out["first"], out["last"],
             prolog, plen, tlen]
-    check_cuda(*args, scratch, *res)
-    HSPLIT.launch(*[a.data_ptr() for a in args], scratch.data_ptr(),
+    check_cuda(*args, *res)
+    wpt, tpc = hsplit_launch(
+        n, EBB, torch.cuda.get_device_properties(dev).multi_processor_count)
+    HSPLIT.launch(*[a.data_ptr() for a in args],
                   *[r.data_ptr() for r in res], n, EBB,
-                  out["scores_by_k"].shape[0], stream_ptr(dev))
+                  out["scores_by_k"].shape[0], wpt, tpc, stream_ptr(dev))
     return tuple(res)
 
 

@@ -1,13 +1,15 @@
-"""Batched windowed score bound on the card (score-only mode).
+"""Batched windowed alignment on the card: the score bound (score-only
+mode) and the full-CIGAR mode.
 
 The counterpart of quicked_tpu/ops/windowed_jax.py (`windowed_scan_impl`
-in score mode, `run_windowed_score`). The CUDA kernel is
-`csrc/windowed_score.cu`; `windowed_scan_torch` is the plain PyTorch
-version, a port of the XLA while-loop. Full-CIGAR mode (tie-break
-M, D, I, X) is not on the cascade's path and is not ported yet.
+in both modes, `run_windowed_score`, `run_windowed_full`). The CUDA
+kernel is `csrc/windowed_score.cu` (one instantiation per mode);
+`windowed_scan_torch` and `windowed_full_torch` are the plain PyTorch
+versions, ports of the XLA while-loop.
 
-`WindowedBatch`, `prepare_windowed_batch` and `hew_cell_threshold` are
-numpy helpers copied from windowed_jax.py, which imports jax.
+`WindowedBatch`, `prepare_windowed_batch`, `hew_cell_threshold` and
+`expand_window_records` are numpy helpers copied from windowed_jax.py,
+which imports jax.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from quicked_tpu_torch.ops.myers_np import div_ceil
 W = 64
 
 WINDOWED = Kernel("qtt_windowed_score", [P] * 10 + [I] * 9 + [P])
+WINDOWED_FULL = Kernel("qtt_windowed_full", [P] * 12 + [I] * 8 + [P])
 
 
 @dataclasses.dataclass
@@ -147,68 +150,90 @@ def _lshr(x, s):
     return (x >> s) & ((torch.ones_like(s) << (64 - s)) - 1)
 
 
+def max_windows(P: int, T: int, WS: int, OVL: int) -> int:
+    """MW: a bound on the windows a pair walks in a batch of P pattern and
+    T text rows (windowed_jax.py:217-218): every window but the last
+    moves pos_v + pos_h by at least 64 * (ws - ovl)."""
+    return -(-(P + T) // (W * max(WS - OVL, 1))) + 2
+
+
+def _fill_window(st: StagedWindowed, pos_v, pos_h, WS: int, pv_after,
+                 mv_before):
+    """One window of the plain version's loop (windowed_scan_impl's body
+    up to its backtrace): the window's corner (v_min, h_min), its raw
+    pattern and text characters (COLS, B), and, written into pv_after and
+    mv_before (COLS, WS, B), Pv after and Mv before each column."""
+    peq = st.peq
+    dev = peq.device
+    KP, _, B = peq.shape
+    COLS = W * WS
+    num_words = st.num_words.long()
+    zeros = torch.zeros(B, dtype=torch.int64, device=dev)
+    topbit = torch.full((B,), -(1 << 63), dtype=torch.int64, device=dev)
+    w_rows = torch.arange(WS, device=dev)[:, None]
+    c_rows = torch.arange(COLS, device=dev)[:, None]
+    pv_pos = pos_v.clamp(min=0)
+    ph_pos = pos_h.clamp(min=0)
+    v_min = (pv_pos - COLS + 1).clamp(min=0)
+    h_min = (ph_pos - COLS + 1).clamp(min=0)
+    shift = v_min % W
+
+    # shifted PEQ window (bpm_windowed.c:237-244)
+    rows = (v_min // W)[None] + w_rows                   # (WS, B)
+
+    def rows_of(r):
+        idx = r.clamp(max=KP - 1)[:, None, :].expand(WS, 5, B)
+        return peq.gather(0, idx)
+
+    lo = torch.where((rows < num_words[None])[:, None], rows_of(rows), -1)
+    hi = torch.where(((rows + 1) < num_words[None])[:, None],
+                     rows_of(rows + 1), 0)
+    s = shift[None, None].expand(WS, 5, B)
+    s1 = s.clamp(min=1)
+    peqw = torch.where(s == 0, lo, _lshr(lo, s1) | (hi << (64 - s1)))
+
+    text_enc = st.text_enc.gather(0, h_min[None] + c_rows).long()
+    text_raw = st.text_raw.gather(0, h_min[None] + c_rows)
+    pat_raw = st.pat_raw.gather(0, v_min[None] + c_rows)
+
+    # window fill (bpm_windowed.c:202-280), no level masks
+    pv = [torch.where(h_min == 0, -1, 0)] * WS
+    mv = [zeros] * WS
+    ph_first = (v_min == 0).long()
+    for tp in range(COLS):
+        c = text_enc[tp][None]
+        mv_before[tp] = torch.stack(mv)
+        ph, mh = ph_first, zeros
+        for i in range(WS):
+            eq = peqw[i].gather(0, c)[0]
+            pv[i], mv[i], ph, mh = advance_block(eq, topbit, pv[i], mv[i],
+                                                 ph, mh)
+        pv_after[tp] = torch.stack(pv)
+    return v_min, h_min, text_raw, pat_raw
+
+
 def windowed_scan_torch(st: StagedWindowed, WS: int, OVL: int,
                         hew_cells: int):
     """Plain PyTorch version: windowed_jax.windowed_scan_impl in score
     mode, vectorized over lanes that move in lockstep, one window per
     loop iteration. Returns (score, hew) (B,) int64 tensors."""
-    peq = st.peq
-    dev = peq.device
-    KP, _, B = peq.shape
+    dev = st.peq.device
+    B = st.peq.shape[2]
     COLS = W * WS
     pos_v = st.plen.long() - 1
     pos_h = st.tlen.long() - 1
-    num_words = st.num_words.long()
     score = torch.zeros(B, dtype=torch.int64, device=dev)
     hew = torch.zeros_like(score)
-    zeros = torch.zeros_like(score)
-    topbit = torch.full((B,), -(1 << 63), dtype=torch.int64, device=dev)
-    w_rows = torch.arange(WS, device=dev)[:, None]
-    c_rows = torch.arange(COLS, device=dev)[:, None]
     pv_after = torch.empty((COLS, WS, B), dtype=torch.int64, device=dev)
     mv_before = torch.empty_like(pv_after)
     while True:
         active = (pos_v >= 0) & (pos_h >= 0)
         if not bool(active.any()):
             break
+        v_min, h_min, text_raw, pat_raw = _fill_window(
+            st, pos_v, pos_h, WS, pv_after, mv_before)
         pv_pos = pos_v.clamp(min=0)
         ph_pos = pos_h.clamp(min=0)
-        v_min = (pv_pos - COLS + 1).clamp(min=0)
-        h_min = (ph_pos - COLS + 1).clamp(min=0)
-        shift = v_min % W
-
-        # shifted PEQ window (bpm_windowed.c:237-244)
-        rows = (v_min // W)[None] + w_rows                   # (WS, B)
-
-        def rows_of(r):
-            idx = r.clamp(max=KP - 1)[:, None, :].expand(WS, 5, B)
-            return peq.gather(0, idx)
-
-        lo = torch.where((rows < num_words[None])[:, None], rows_of(rows),
-                         -1)
-        hi = torch.where(((rows + 1) < num_words[None])[:, None],
-                         rows_of(rows + 1), 0)
-        s = shift[None, None].expand(WS, 5, B)
-        s1 = s.clamp(min=1)
-        peqw = torch.where(s == 0, lo, _lshr(lo, s1) | (hi << (64 - s1)))
-
-        text_enc = st.text_enc.gather(0, h_min[None] + c_rows).long()
-        text_raw = st.text_raw.gather(0, h_min[None] + c_rows)
-        pat_raw = st.pat_raw.gather(0, v_min[None] + c_rows)
-
-        # window fill (bpm_windowed.c:202-280), no level masks
-        pv = [torch.where(h_min == 0, -1, 0)] * WS
-        mv = [zeros] * WS
-        ph_first = (v_min == 0).long()
-        for tp in range(COLS):
-            c = text_enc[tp][None]
-            mv_before[tp] = torch.stack(mv)
-            ph, mh = ph_first, zeros
-            for i in range(WS):
-                eq = peqw[i].gather(0, c)[0]
-                pv[i], mv[i], ph, mh = advance_block(eq, topbit, pv[i],
-                                                     mv[i], ph, mh)
-            pv_after[tp] = torch.stack(pv)
 
         # greedy backtrace as a column scan, tie-break D, I, M, X
         v_ovl_rel = (pv_pos - W * (WS - OVL) + 1).clamp(min=0) - v_min
@@ -244,6 +269,77 @@ def windowed_scan_torch(st: StagedWindowed, WS: int, OVL: int,
     score = score + torch.where(pos_h >= 0, pos_h + 1, 0)
     score = score + torch.where(pos_v >= 0, pos_v + 1, 0)
     return score, hew
+
+
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(64 N, B) bools -> (N, B) int64 words, bit k of word w = row 64w+k."""
+    n64, B = bits.shape
+    shifts = torch.arange(W, device=bits.device)[None, :, None]
+    return (bits.view(n64 // W, W, B).long() << shifts).sum(1)
+
+
+def windowed_full_torch(st: StagedWindowed, WS: int, OVL: int):
+    """Plain PyTorch version of the full-CIGAR mode:
+    windowed_jax.windowed_scan_impl with full=True, vectorized over lanes
+    that move in lockstep, one window per loop iteration. The backtrace's
+    tie-break is M, D, I, X: a D step needs Pv set and no match at the
+    cell (the D-predicate Pv & ~match, windowed_jax.py:357). Returns
+    (rec_run (B, MW, COLS) int16, rec_op (B, MW, COLS) int8, pos_v (B,)
+    int32, pos_h (B,) int32): one (d_run, opcode) record per window column
+    (opcode 1 M, 3 I, 4 X, 0 none), pair-major, window k of a pair at row
+    k, and the cursor where the walk left the last window."""
+    dev = st.peq.device
+    B = st.peq.shape[2]
+    COLS = W * WS
+    MW = max_windows(st.pat_raw.shape[0], st.text_enc.shape[0], WS, OVL)
+    rec_run = torch.zeros((B, MW, COLS), dtype=torch.int16, device=dev)
+    rec_op = torch.zeros((B, MW, COLS), dtype=torch.int8, device=dev)
+    pos_v = st.plen.long() - 1
+    pos_h = st.tlen.long() - 1
+    pv_after = torch.empty((COLS, WS, B), dtype=torch.int64, device=dev)
+    mv_before = torch.empty_like(pv_after)
+    widx = 0
+    while True:
+        active = (pos_v >= 0) & (pos_h >= 0)
+        if not bool(active.any()):
+            break
+        v_min, h_min, text_raw, pat_raw = _fill_window(
+            st, pos_v, pos_h, WS, pv_after, mv_before)
+        pv_pos = pos_v.clamp(min=0)
+        ph_pos = pos_h.clamp(min=0)
+        v_ovl_rel = (pv_pos - W * (WS - OVL) + 1).clamp(min=0) - v_min
+        h_ovl_rel = (ph_pos - W * (WS - OVL) + 1).clamp(min=0) - h_min
+        vr = pv_pos - v_min
+        hr = ph_pos - h_min
+        wc = min(widx, MW - 1)
+        for col in range(COLS, 0, -1):
+            act = active & (hr == col - 1) & (vr >= v_ovl_rel) & \
+                (hr >= h_ovl_rel)
+            if not bool(act.any()):
+                continue
+            match = pat_raw == text_raw[col - 1][None]      # (COLS, B)
+            vru = vr.clamp(0, COLS - 1)
+            hz = highest_zero_at_or_below(
+                pv_after[col - 1] & ~_pack_bits(match), vru)
+            max_run = vru - v_ovl_rel + 1
+            run = torch.minimum(vru - hz, max_run)
+            ended = run == max_run          # window exit mid-run
+            v1 = vru - run
+            v1u = v1.clamp(0, COLS - 1)
+            is_m = match.gather(0, v1u[None])[0]
+            is_i = ~is_m & (bit_at(mv_before[col - 1], v1u) == 1)
+            opc = torch.where(is_m, 1, torch.where(is_i, 3, 4))
+            rec_op[:, wc, col - 1] = torch.where(act & ~ended, opc, 0).to(
+                torch.int8)
+            rec_run[:, wc, col - 1] = torch.where(act, run, 0).to(
+                torch.int16)
+            vr = torch.where(act, torch.where(ended, v1,
+                                              v1 - (~is_i).long()), vr)
+            hr = torch.where(act & ~ended, hr - 1, hr)
+        pos_v = torch.where(active, v_min + vr, pos_v)
+        pos_h = torch.where(active, h_min + hr, pos_h)
+        widx += 1
+    return rec_run, rec_op, pos_v.int(), pos_h.int()
 
 
 def shared_pair_bytes(ws: int) -> int:
@@ -306,8 +402,8 @@ def max_shared_bytes(device_index: int) -> int:
     return out.value
 
 
-def _launch_windowed(st: StagedWindowed, WS: int, OVL: int,
-                     hew_cells: int):
+def _check_windowed(st: StagedWindowed, WS: int):
+    """Validate a staged batch for the kernel; returns (KP, B, T, P)."""
     if WS < 1:
         raise ValueError(f"window_size {WS}: must be at least 1")
     KP, five, B = st.peq.shape
@@ -324,26 +420,55 @@ def _launch_windowed(st: StagedWindowed, WS: int, OVL: int,
             st.pat_raw.shape != (P_, B) or any(x.shape != (B,)
                                                for x in lanes):
         raise ValueError("windowed: text (T, B), pattern (P, B), lanes (B,)")
+    return KP, B, T, P_
+
+
+def _kernel_inputs(st: StagedWindowed, WS: int, B: int):
+    """The launch geometry, the pair-major copies of the lane-minor staged
+    batch the kernel reads (inputs then lanes, as pointers) and its
+    scratch (None in the shared mode)."""
     dev = st.peq.device
     geo = windowed_geometry(
         WS, B, torch.cuda.get_device_properties(dev).multi_processor_count,
         max_shared_bytes(dev.index))
-    # the kernel reads pair-major copies of the lane-minor staged batch
-    peq = st.peq.permute(2, 0, 1).contiguous()
-    text_enc = st.text_enc.t().to(torch.uint8).contiguous()
-    text_raw = st.text_raw.t().contiguous()
-    pat_raw = st.pat_raw.t().contiguous()
+    bufs = [st.peq.permute(2, 0, 1).contiguous(),
+            st.text_enc.t().to(torch.uint8).contiguous(),
+            st.text_raw.t().contiguous(), st.pat_raw.t().contiguous(),
+            st.plen, st.tlen, st.num_words]
     scratch = (torch.empty((B, geo.scratch_bytes), dtype=torch.uint8,
                            device=dev) if geo.scratch_bytes else None)
-    score = torch.empty((B,), dtype=torch.int32, device=dev)
+    return geo, bufs, scratch
+
+
+def _launch_windowed(st: StagedWindowed, WS: int, OVL: int,
+                     hew_cells: int):
+    KP, B, T, P_ = _check_windowed(st, WS)
+    geo, bufs, scratch = _kernel_inputs(st, WS, B)
+    score = torch.empty((B,), dtype=torch.int32, device=st.peq.device)
     hew = torch.empty_like(score)
     WINDOWED.launch(
-        peq.data_ptr(), text_enc.data_ptr(), text_raw.data_ptr(),
-        pat_raw.data_ptr(), *(x.data_ptr() for x in lanes),
+        *(x.data_ptr() for x in bufs),
         None if scratch is None else scratch.data_ptr(), score.data_ptr(),
         hew.data_ptr(), B, KP, T, P_, WS, OVL, hew_cells, geo.span,
-        geo.shared_bytes, stream_ptr(dev))
+        geo.shared_bytes, stream_ptr(st.peq.device))
     return score.long(), hew.long()
+
+
+def _launch_windowed_full(st: StagedWindowed, WS: int, OVL: int):
+    KP, B, T, P_ = _check_windowed(st, WS)
+    geo, bufs, scratch = _kernel_inputs(st, WS, B)
+    dev = st.peq.device
+    shape = (B, max_windows(P_, T, WS, OVL), W * WS)
+    rec_run = torch.zeros(shape, dtype=torch.int16, device=dev)
+    rec_op = torch.zeros(shape, dtype=torch.int8, device=dev)
+    pos_v = torch.empty((B,), dtype=torch.int32, device=dev)
+    pos_h = torch.empty_like(pos_v)
+    WINDOWED_FULL.launch(
+        *(x.data_ptr() for x in bufs),
+        None if scratch is None else scratch.data_ptr(), rec_run.data_ptr(),
+        rec_op.data_ptr(), pos_v.data_ptr(), pos_h.data_ptr(), B, KP, T, P_,
+        WS, OVL, geo.span, geo.shared_bytes, stream_ptr(dev))
+    return rec_run, rec_op, pos_v, pos_h
 
 
 def windowed_score_staged(st: StagedWindowed, WS: int, OVL: int,
@@ -355,6 +480,15 @@ def windowed_score_staged(st: StagedWindowed, WS: int, OVL: int,
     return _launch_windowed(st, WS, OVL, hew_cells)
 
 
+def windowed_full_staged(st: StagedWindowed, WS: int, OVL: int):
+    """(rec_run, rec_op, pos_v, pos_h) of the full-CIGAR mode on the staged
+    batch's device (see `windowed_full_torch`): the CUDA kernel for a CUDA
+    batch, the plain version for a CPU one."""
+    if st.peq.device.type == "cpu":
+        return windowed_full_torch(st, WS, OVL)
+    return _launch_windowed_full(st, WS, OVL)
+
+
 def run_windowed_score(batch: WindowedBatch, hew_threshold: int,
                        window_size: int, overlap_size: int,
                        device="cuda"):
@@ -363,3 +497,62 @@ def run_windowed_score(batch: WindowedBatch, hew_threshold: int,
     cells = hew_cell_threshold(window_size, overlap_size, hew_threshold)
     score, hew = windowed_score_staged(st, window_size, overlap_size, cells)
     return score.cpu().numpy(), hew.cpu().numpy()
+
+
+_OP_BYTES = np.array([0, ord("M"), ord("D"), ord("I"), ord("X")],
+                     dtype=np.uint8)
+
+
+def expand_window_records(runs, opcs, pos_v, pos_h,
+                          n: int | None = None) -> list[str]:
+    """Expand (MW, COLS, B) per-window column records to forward-order
+    op strings: 'D'*(pos_v+1) + 'I'*(pos_h+1) + for windows DESCENDING
+    (the last window processed is the leftmost piece), columns
+    ascending: op + 'D'*d_run — the reference's right-to-left buffer,
+    reversed. One vectorized np.repeat per lane chunk."""
+    runs = np.asarray(runs)
+    opcs = np.asarray(opcs)
+    pos_v = np.asarray(pos_v)
+    pos_h = np.asarray(pos_h)
+    MW, COLS, B = runs.shape
+    n = B if n is None else n
+    R = MW * COLS
+    rflat = runs[::-1].reshape(R, B)
+    oflat = opcs[::-1].reshape(R, B)
+    out = []
+    CH = max(1, (1 << 24) // max(R, 1))        # bound temp arrays
+    for s in range(0, n, CH):
+        e = min(s + CH, n)
+        m = e - s
+        vals = np.empty((m, 2 + 2 * R), dtype=np.uint8)
+        cnts = np.empty((m, 2 + 2 * R), dtype=np.int64)
+        vals[:, 0] = ord("D")
+        cnts[:, 0] = np.maximum(pos_v[s:e] + 1, 0)
+        vals[:, 1] = ord("I")
+        cnts[:, 1] = np.maximum(pos_h[s:e] + 1, 0)
+        vals[:, 2::2] = _OP_BYTES[oflat[:, s:e]].T
+        cnts[:, 2::2] = (oflat[:, s:e] != 0).T
+        vals[:, 3::2] = ord("D")
+        cnts[:, 3::2] = rflat[:, s:e].T
+        flat = np.repeat(vals.ravel(), cnts.ravel())
+        tot = cnts.sum(axis=1)
+        ends = np.cumsum(tot)
+        starts = ends - tot
+        buf = flat.tobytes()
+        out.extend(buf[starts[i]:ends[i]].decode("ascii")
+                   for i in range(m))
+    return out
+
+
+def run_windowed_full(batch: WindowedBatch, window_size: int,
+                      overlap_size: int, device="cuda") -> list[str]:
+    """Full-CIGAR windowed mode: forward-order op strings per pair
+    (windowed_compute's CIGAR path, bpm_windowed.c:563-628). The records
+    go to the host in expand_window_records' (MW, COLS, B) layout."""
+    st = stage_windowed(batch, device)
+    runs, opcs, pos_v, pos_h = windowed_full_staged(st, window_size,
+                                                    overlap_size)
+    return expand_window_records(
+        runs.permute(1, 2, 0).contiguous().cpu().numpy(),
+        opcs.permute(1, 2, 0).contiguous().cpu().numpy(),
+        pos_v.cpu().numpy(), pos_h.cpu().numpy(), n=batch.B)

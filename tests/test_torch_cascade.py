@@ -91,9 +91,7 @@ def test_torch_empty_sequences():
 def test_torch_windowed_score_and_full():
     pairs = _pairs(3, 300, 0.1, 41)
     _same(pairs, QuickedParams(algo=QuickedAlgo.WINDOWED, only_score=True))
-    with pytest.raises(NotImplementedError, match="windowed full mode"):
-        api.align_batch(pairs, QuickedParams(algo=QuickedAlgo.WINDOWED),
-                        device="cpu")
+    _same(pairs, QuickedParams(algo=QuickedAlgo.WINDOWED))
 
 
 def test_torch_numpy_model_path():

@@ -10,12 +10,12 @@ from quicked_tpu import api as jax_api
 from quicked_tpu import cigar as jax_cigar
 from quicked_tpu import generate as jax_generate
 from quicked_tpu import native as jax_native
+from quicked_tpu.aligner import batch as jax_batch
 from quicked_tpu.ops import batch_prep as jax_prep
 from quicked_tpu.ops import myers_np as jax_np
 from quicked_tpu.params import QuickedAlgo as JaxAlgo
 from quicked_tpu.params import QuickedParams as JaxParams
 from quicked_tpu_torch import api, cigar, dna, generate, native
-from quicked_tpu_torch.aligner import batch
 from quicked_tpu_torch.ops import batch_prep, myers_np
 from quicked_tpu_torch.params import QuickedAlgo, QuickedParams
 
@@ -79,10 +79,10 @@ def check_hirschberg_split_fast():
     txts = [t for _, t in pairs]
     cos = [max(len(p), len(t)) * 25 // 100 for p, t in pairs]
     mids = [(len(t) + 1) // 2 for t in txts]
-    both = batch.banded_score_results(
+    both = jax_batch.banded_score_results(
         pats + [p[::-1] for p in pats], txts + [t[::-1] for t in txts],
         cos + cos, text_finish=mids + [len(t) - m for t, m in
-                                       zip(txts, mids)], device="cpu")
+                                       zip(txts, mids)])
     n = 0
     for i in range(len(pairs)):
         f, r = both[i], both[len(pairs) + i]
@@ -182,10 +182,50 @@ def check_native_windowed():
     assert hews > 0
 
 
+def check_native_windowed_full():
+    """The host C windowed full-CIGAR mode through the port's loader and
+    the JAX package's: ws 1 (ovl 0), 2 and 9 over pairs with large indels
+    and N characters."""
+    if not (native.available() and jax_native.available()):
+        pytest.skip("no C compiler for the host C runtime")
+    pairs = list(generate.generate_pairs(5, 1200, error=0.15, seed=14,
+                                         indels_num=2, indels_length=150))
+    pairs.append(("ACGTNNACGT" * 30, "ACGTACGTNN" * 28))
+    for ws, ovl in ((1, 0), (2, 1), (9, 1)):
+        for p, t in pairs:
+            args = (dna.encode(p), p.encode(), dna.encode(t), t.encode(),
+                    ws, ovl)
+            got = native.windowed_full(*args)
+            assert got == jax_native.windowed_full(*args), (ws, p[:20])
+            assert got.count("M") + got.count("X") + got.count("I") == \
+                len(t)
+
+
+def check_expand_window_records():
+    """The port's copy of expand_window_records against the original on
+    random records: zero and non-zero opcodes and runs, negative and
+    positive final cursors."""
+    from quicked_tpu.ops import windowed_jax
+    from quicked_tpu_torch.ops import windowed_cuda
+
+    rng = np.random.default_rng(15)
+    for MW, COLS, B in ((3, 64, 5), (7, 128, 2), (1, 64, 1)):
+        runs = rng.integers(0, 4, (MW, COLS, B)).astype(np.int16)
+        opcs = rng.choice(np.array([0, 1, 3, 4], np.int8), (MW, COLS, B))
+        pos_v = rng.integers(-1, 30, B).astype(np.int32)
+        pos_h = rng.integers(-1, 30, B).astype(np.int32)
+        for n in (None, B - 1):
+            assert windowed_cuda.expand_window_records(
+                runs, opcs, pos_v, pos_h, n=n) == \
+                windowed_jax.expand_window_records(runs, opcs, pos_v, pos_h,
+                                                   n=n)
+
+
 CASES = {f.__name__[len("check_"):]: f for f in (
     check_generate, check_prepare_banded_batch, check_band_geometry,
     check_hirschberg_split_fast, check_cigar, check_align_one_np,
-    check_native, check_native_windowed)}
+    check_native, check_native_windowed, check_native_windowed_full,
+    check_expand_window_records)}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

@@ -59,6 +59,25 @@ def test_torch_chip_smoke_imports_no_jax_package():
     assert not bad, bad
 
 
+def test_torch_package_surface_matches_jax():
+    """quicked_tpu_torch exports what quicked_tpu exports: the JAX
+    package's __all__, read from its source by ast so that nothing of it
+    is imported, equals the port's, and every name resolves."""
+    import quicked_tpu_torch
+
+    with open(os.path.join(ROOT, "quicked_tpu", "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    want = next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign) and
+                any(getattr(t, "id", None) == "__all__"
+                    for t in node.targets))
+    assert quicked_tpu_torch.__all__ == want
+    for name in want:
+        assert getattr(quicked_tpu_torch, name) is not None, name
+    assert quicked_tpu_torch.WINDOWED == quicked_tpu_torch.QuickedAlgo.WINDOWED
+    assert quicked_tpu_torch.BatchAligner is api.BatchAligner
+
+
 def test_torch_cuda_device_raises_without_card(monkeypatch):
     """device="cuda" (the default) raises when no card is present instead
     of carrying on on the CPU."""
@@ -309,9 +328,42 @@ def test_torch_kernels_match_plain_on_card():
         [100] * 16, full=False,
         text_finish=[m for t in txts for m in ((len(t) + 1) // 2,
                                                len(t) - (len(t) + 1) // 2)])
-    out = bc.fill_staged(bc.stage_banded(b, "cuda"))
+    st = bc.stage_banded(b, "cuda")
     task = [torch.tensor(a[0::2], dtype=torch.int32, device="cuda")
             for a in (b.prolog, b.plen, b.tlen)]
-    for a, b_ in zip(hs.hirschberg_split(out, *task),
-                     hs.hirschberg_split_torch(out, *task)):
-        assert torch.equal(a, b_)
+    # on the fill's outputs, and on the deep-band passes' (the systolic
+    # one exact on [first, last] only)
+    for out in (bc.fill_staged(st), cc.cscan_staged(st),
+                sb.sysband_staged(st)):
+        for a, b_ in zip(hs.hirschberg_split(out, *task),
+                         hs.hirschberg_split_torch(out, *task)):
+            assert torch.equal(a, b_)
+    # deeper levels (EBB 48 and 142: 1 and 2 warps a task)
+    for length, cutoff in ((4000, 3000), (6000, 9000)):
+        pl = list(generate.generate_pairs(3, length, error=0.1, seed=8,
+                                          indels_num=2, indels_length=200))
+        db = prepare_banded_batch(
+            [x for p, _ in pl for x in (p, p[::-1])],
+            [x for _, t in pl for x in (t, t[::-1])], [cutoff] * 6,
+            full=False, text_finish=[m for _, t in pl for m in (
+                (len(t) + 1) // 2, len(t) - (len(t) + 1) // 2)])
+        out = cc.cscan_staged(bc.stage_banded(db, "cuda"))
+        task = [torch.tensor(a[0::2], dtype=torch.int32, device="cuda")
+                for a in (db.prolog, db.plen, db.tlen)]
+        want = hs.hirschberg_split_torch(
+            {k: v.cpu() for k, v in out.items()}, *[x.cpu() for x in task])
+        assert int(want[3].sum()) == 3
+        for a, b_ in zip(hs.hirschberg_split(out, *task), want):
+            assert torch.equal(a.cpu(), b_)
+
+    # the windowed full mode at ws 1 (ovl 0), 2, 9, 14, 15 (the scratch
+    # window) and 20, with a pure-deletion and a pure-insertion pair
+    rng = np.random.default_rng(9)
+    d = "".join(rng.choice(list("ACGT"), 700))
+    fp, ft = pats + [d, d[200:260]], txts + [d[200:260], d]
+    for ws, ovl in ((1, 0), (2, 1), (9, 1), (14, 1), (15, 1), (20, 1)):
+        b = wc.prepare_windowed_batch(fp, ft, window_size=ws)
+        got = wc.windowed_full_staged(wc.stage_windowed(b, "cuda"), ws, ovl)
+        want = wc.windowed_full_torch(wc.stage_windowed(b, "cpu"), ws, ovl)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), ws

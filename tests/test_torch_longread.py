@@ -3,8 +3,8 @@
 (quicked_tpu/aligner/batch.py:540-572), and the QUICKED cascade end to
 end on the CPU with the route's bounds and the Hirschberg budget shrunk,
 so that small pairs take every deep-band family: the carry-scan pass in
-stage 3, the systolic pass in a Hirschberg split level, and a fused split
-level (fill and split epilogue). Results must equal the JAX package's and
+stage 3, the systolic pass in a Hirschberg split level, and a split level
+on the fill, each level finished by the split epilogue. Results must equal the JAX package's and
 the numpy model's exactly."""
 
 import pytest
@@ -70,7 +70,8 @@ def test_torch_longread_slice_takes_every_family(monkeypatch):
     """Two 3 kbp pairs with four 100 bp indels, the route's bounds shrunk
     (fill up to 8 blocks, carry-scan from 2, systolic for exactly 8) and
     a 64 KB Hirschberg budget: stage 3 runs the carry-scan pass, a split
-    level the systolic pass, a later level is fused. Statuses, scores and
+    level the systolic pass, a later level the fill, each level then the
+    split epilogue. Statuses, scores and
     CIGARs equal quicked_tpu.api's and the numpy model's."""
     for name, value in (("PALLAS_MAX_EBB", 8), ("CSCAN_MIN_EBB", 2),
                         ("SYSBAND_MIN_EBB", 8), ("SYSBAND_MAX_EBB", 8)):
@@ -85,8 +86,7 @@ def test_torch_longread_slice_takes_every_family(monkeypatch):
     caller = ["?"]
     real_score = batch.score_staged
     real_stage3 = cascade.banded_align_batch
-    real_level = batch.banded_score_results
-    real_fused = batch.hirschberg_level_splits_device
+    real_level = batch._hsplit_fused
 
     def score_staged(st, family):
         taken.append((caller[0], family))
@@ -96,26 +96,20 @@ def test_torch_longread_slice_takes_every_family(monkeypatch):
         caller[0] = "stage3"
         return real_stage3(*a, **kw)
 
-    def level(*a, **kw):
+    def level(batch_, dev, family):
         caller[0] = "level"
-        return real_level(*a, **kw)
-
-    def fused(*a, **kw):
-        res = real_fused(*a, **kw)
-        taken.append(("level", "fused" if res is not None else "declined"))
-        return res
+        return real_level(batch_, dev, family)
 
     monkeypatch.setattr(batch, "score_staged", score_staged)
     monkeypatch.setattr(cascade, "banded_align_batch", stage3)
-    monkeypatch.setattr(batch, "banded_score_results", level)
-    monkeypatch.setattr(batch, "hirschberg_level_splits_device", fused)
+    monkeypatch.setattr(batch, "_hsplit_fused", level)
 
     pairs = list(generate.generate_pairs(2, 3000, error=0.1, seed=1,
                                          indels_num=4, indels_length=100))
     got = api.BatchAligner(QuickedParams(), device="cpu").align(pairs)
     assert ("stage3", "cscan") in taken, taken
     assert ("level", "sysband") in taken, taken
-    assert ("level", "fused") in taken, taken
+    assert ("level", "fill") in taken, taken
 
     want = jax_api.align_batch(pairs, QuickedParams())
     assert [int(s) for s in got.status] == [int(s) for s in want.status]

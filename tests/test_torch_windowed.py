@@ -1,8 +1,8 @@
-"""Parity: the port's windowed score bound
+"""Parity: the port's windowed score bound and full-CIGAR mode
 (quicked_tpu_torch.ops.windowed_cuda) vs the JAX package's XLA
-while-loop (windowed_jax.run_windowed_score) and the numpy model
-(myers_np.windowed_compute): scores and high-error-window counts must be
-equal (tolerance 0)."""
+while-loop (windowed_jax.run_windowed_score, run_windowed_full) and the
+numpy model (myers_np.windowed_compute): scores, high-error-window counts
+and op strings must be equal (tolerance 0)."""
 
 import numpy as np
 import pytest
@@ -170,3 +170,96 @@ def test_torch_windowed_geometry():
     assert wc.windowed_geometry(2, 5000, sms, dyn).pairs_per_warp == 16
     assert wc.windowed_geometry(9, 1000, sms, dyn).pairs_per_warp == 2
     assert wc.windowed_geometry(9, 100, sms, dyn).pairs_per_warp == 1
+
+
+def _check_full(pats, txts, ws, ovl):
+    """The port's full mode (plain version) against the JAX package's
+    run_windowed_full and the numpy model, op string by op string."""
+    jb = wj.prepare_windowed_batch(pats, txts, window_size=ws, pad_to_b=8)
+    want = wj.run_windowed_full(jb, ws, ovl)
+    got = wc.run_windowed_full(
+        wc.prepare_windowed_batch(pats, txts, window_size=ws), ws, ovl,
+        device="cpu")
+    assert got == want[:len(pats)]
+    for i, (p, t) in enumerate(zip(pats, txts)):
+        _, mops, _ = myers_np.windowed_compute(p, t, 0, ws, ovl,
+                                               score_only=False)
+        assert got[i] == mops, (i, len(p), len(t))
+
+
+@pytest.mark.parametrize("ws,ovl,length,error,seed,ldiff", [
+    (2, 1, 150, 0.08, 21, 1.0),
+    (2, 1, 300, 0.15, 22, 1.2),
+    (9, 1, 700, 0.1, 23, 1.0),
+    (3, 2, 260, 0.1, 24, 0.8),
+])
+def test_torch_windowed_full_cigar_parity(ws, ovl, length, error, seed,
+                                          ldiff):
+    pairs = _pairs(5, length, error, seed, ldiff)
+    _check_full([p for p, _ in pairs], [t for _, t in pairs], ws, ovl)
+
+
+@pytest.mark.parametrize("ws,ovl", [(2, 1), (3, 1)])
+def test_torch_windowed_full_extreme_indels(ws, ovl):
+    """Long D/I runs, the M-outranks-D tie-break on match columns, pure
+    deletions and insertions, N characters."""
+    rng = np.random.default_rng(47 + ws)
+    pats, txts = [], []
+    for _ in range(2):
+        pl = int(rng.integers(150, 350))
+        tl = int(rng.integers(5, pl // 2))
+        p = "".join(rng.choice(list("ACGTN"), pl))
+        tp = int(rng.integers(0, pl - tl + 1))
+        pats.append(p)
+        txts.append(p[tp:tp + tl])
+        pats.append(p[tp:tp + tl])
+        txts.append(p)
+    pats.append("A" * 150)
+    txts.append("C" * 4)
+    _check_full(pats, txts, ws, ovl)
+
+
+def test_torch_windowed_full_ws20_matches_model():
+    """ws 20 (the kernel's scratch mode): the port's bucketed full mode
+    against the numpy model."""
+    from quicked_tpu_torch.aligner import cascade
+
+    pairs = _pairs(2, 500, 0.1, 25) + _pairs(1, 1500, 0.12, 26,
+                                             indels_num=1,
+                                             indels_length=200)
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    got = cascade.windowed_full_batch(pats, txts, 20, 1, device="cpu")
+    for i, (p, t) in enumerate(pairs):
+        _, mops, _ = myers_np.windowed_compute(p, t, 0, 20, 1,
+                                               score_only=False)
+        assert got[i] == mops, i
+
+
+def test_torch_windowed_full_align_batch_matches_jax():
+    """align_batch(WINDOWED, only_score=False) of the port against the
+    JAX package's on the CPU: statuses, scores and CIGARs, an empty pair
+    among them."""
+    from quicked_tpu import api as jax_api
+    from quicked_tpu.params import QuickedAlgo, QuickedParams
+    from quicked_tpu_torch import api
+
+    pairs = _pairs(3, 600, 0.12, 27, indels_num=1, indels_length=60) + \
+        [("ACGT", ""), ("ACGTNACGT", "ACGTACGGT")]
+    prm = QuickedParams(algo=QuickedAlgo.WINDOWED, only_score=False,
+                        window_size=2, overlap_size=1)
+    got = api.align_batch(pairs, prm, device="cpu")
+    want = jax_api.align_batch(pairs, prm)
+    assert [int(s) for s in got.status] == [int(s) for s in want.status]
+    assert list(got.score) == list(want.score)
+    assert list(got.cigar) == list(want.cigar)
+    assert all(c for c in got.cigar[:3])
+
+
+def test_torch_windowed_full_refuses_cpu_tensors():
+    """The full-mode wrapper launches only on CUDA tensors."""
+    tb = wc.prepare_windowed_batch(["ACGT"], ["ACGT"], window_size=2)
+    st = wc.stage_windowed(tb, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        wc._launch_windowed_full(st, 2, 1)
+    assert wc.WINDOWED_FULL.launches == 0

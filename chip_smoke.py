@@ -75,6 +75,22 @@ Run from the repository root. It builds the port's CUDA kernels from
            host C windowed full mode (`native.windowed_full`), the
            full-mode kernel launched, then timed on that batch with its
            bound and held to its plain version on two lanes;
+  phase 7  the CLI on the card: `align_benchmark -a quicked` in-process
+           over the phase-3 pairs (written to a .seq file, batches of
+           250), every TSV line equal to the host C cascade and the fill,
+           traceback and windowed kernels launched, its wall beside phase
+           3's API wall; `-a edit-bpm` (a full-width band, the fill past
+           128 blocks) on 100 of them, scores equal to the host C cascade
+           and `--check correct` at 100%; `-a edit-banded`,
+           `edit-banded-hirschberg` and `edit-windowed`, with and without
+           `--only-score`, on 200, every line equal to the host C runtime
+           (`native.hirschberg` with the band's cutoff, an unbounded
+           budget for BANDED; the host C banded kernel for BANDED scores;
+           `native.windowed_full` and `native.windowed_score`) and to
+           `api.align_batch`;
+           one subprocess run of the module entry with `--profile` (the
+           trace names the fill) and `--memory-report` (the card's peak,
+           the full fill's planes);
   recorded both slices aligned once more, untimed, while `Recorder`
            keeps what they hand the windowed kernel (stage 1, stage 2
            forward and reverse), the traceback (the 10 kbp run's
@@ -1218,12 +1234,14 @@ class Recorder:
     `BandedBatch` with the family and the lanes the systolic pass aborted
     (by wrapping the aligner's `stage_banded` and `score_staged`), and the
     arguments of every split epilogue call, a score pass's outputs on the
-    card among them (by wrapping the aligner's `hirschberg_split`)."""
+    card among them (by wrapping the aligner's `hirschberg_split`), and
+    the largest full-fill `BandedBatch` the aligner staged (`full`)."""
 
     def __init__(self, largest_chunk):
         self.largest = largest_chunk
         self.windowed = []
         self.chunk = None
+        self.full = None
         self.deep = []          # (BandedBatch, family, ABORT lanes)
         self.hsplit = []        # the split epilogue's arguments, per level
 
@@ -1252,6 +1270,10 @@ class Recorder:
 
         def stage(batch, dev):
             last[:] = [self.real[2](batch, dev), batch]
+            size = batch.B * batch.NB * batch.EBB
+            if batch.full and (self.full is None or size > self.full.B *
+                               self.full.NB * self.full.EBB):
+                self.full = batch
             return last[0]
 
         def score(st, family):
@@ -1487,7 +1509,7 @@ def phase3(gen, args, torch):
           f"chunks: B={st.B} EBB={st.EBB} NB={st.NB}: kernel {ms:.3f} ms "
           f"(bound {b_ms:.3f} ms, {b_by})")
     return pairs, launches, dict(fill_10kbp_chunk=dict(
-        ms=ms, bound_ms=b_ms, bound_by=b_by))
+        ms=ms, bound_ms=b_ms, bound_by=b_by)), wall, want
 
 
 def host_cascade(pairs, params):
@@ -1655,6 +1677,229 @@ def phase6(pairs, torch, pool):
         phase="phase 6")
 
 
+def cli_run(argv, torch):
+    """align_benchmark's main in-process on the card: (its stderr, wall
+    seconds, launches per kernel), the counts set to 0 just before it;
+    fails unless it exits 0."""
+    import contextlib
+    import io
+
+    from quicked_tpu_torch.tools import align_benchmark
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, wall, launches, _ = run_counted(
+            lambda: align_benchmark.main(argv), torch)
+    check(rc == 0, f"align_benchmark {' '.join(argv)} exited {rc}: "
+          f"{err.getvalue()[-2000:]}")
+    return err.getvalue(), wall, launches
+
+
+def tsv_line(score, cigar, status=0, only_score=False):
+    """A pair's line of align_benchmark's TSV (benchmark_utils.c:167-188)."""
+    if int(status) < 0:
+        return "ERROR\t" + ("-" if only_score else "ERROR")
+    return f"{int(score)}\t{'-' if cigar is None else cigar}"
+
+
+def read_lines(path):
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def cli_oracle(algo, only_score, pairs):
+    """Each pair's align_benchmark line for `algo` at the CLI's defaults
+    (bandwidth 15, ws 9, ovl 1, HEW threshold 40) from the host C runtime,
+    which shares no code with the card's path: BANDED CIGARs from its
+    Hirschberg with the band's cutoff and no budget (so the whole band is
+    one base case), BANDED scores from its banded kernel, HIRSCHBERG from
+    its Hirschberg under the 16 MB budget, WINDOWED from its windowed
+    full and score modes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from quicked_tpu_torch import dna, native
+    from quicked_tpu_torch.cigar import Cigar
+    from quicked_tpu_torch.ops.batch_prep import (extract_final_scores,
+                                                  prepare_banded_batch)
+    from quicked_tpu_torch.params import HIRSCHBERG_BUFFER_SIZE
+
+    if algo == "edit-banded" and only_score:
+        b = prepare_banded_batch(
+            [p for p, _ in pairs], [t for _, t in pairs],
+            [max(len(p), len(t)) * 15 // 100 for p, t in pairs], full=False)
+        scores = extract_final_scores(
+            b, native.run_banded_native(b)["scores_by_k"])
+        return [tsv_line(s, None) for s in scores]
+
+    def line(pair):
+        p, t = pair
+        args = (dna.encode(p), p.encode(), dna.encode(t), t.encode())
+        if algo == "edit-windowed":
+            if only_score:
+                return tsv_line(native.windowed_score(*args, 9, 1, 40)[0],
+                                None)
+            ops, st = native.windowed_full(*args, 9, 1), 0
+        else:
+            budget = (HIRSCHBERG_BUFFER_SIZE
+                      if algo == "edit-banded-hirschberg" else 1 << 62)
+            st, ops = native.hirschberg(
+                *args, max(len(p), len(t)) * 15 // 100, budget)
+        c = Cigar(operations=ops)
+        return tsv_line(c.score_edit(), None if only_score
+                        else c.sprint(True), st, only_score)
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        return list(ex.map(line, pairs))
+
+
+def phase7(pairs, want, api_wall, torch):
+    """The CLI on the card, in-process as a user's script would call it:
+    `-a quicked` over phase 3's pairs in batches of 250, every TSV line
+    equal to the host C cascade (phase 3's oracle); `-a edit-bpm` (a
+    full-width band in full mode) on the first 100 pairs, every score equal
+    to the host C cascade's and `--check correct` at 100%; `-a
+    edit-banded`, `edit-banded-hirschberg` and `edit-windowed`, with and
+    without `--only-score`, on the first 200, every line equal to the host
+    C runtime's (`cli_oracle`) and to `api.align_batch` on the card; then
+    one run of the module entry in a subprocess with `--profile` and
+    `--memory-report`."""
+    import tempfile
+
+    from quicked_tpu_torch import seqio
+    from quicked_tpu_torch.aligner import batch as qb
+    from quicked_tpu_torch.api import align_batch
+    from quicked_tpu_torch.params import QuickedAlgo, QuickedParams
+
+    with tempfile.TemporaryDirectory() as td:
+        seq = os.path.join(td, "pairs.seq")
+        out = os.path.join(td, "out.tsv")
+        seqio.write_seq_pairs(seq, pairs)
+        err, wall, launches = cli_run(
+            ["-a", "quicked", "-i", seq, "-o", out, "--batch-size", "250",
+             "-v"], torch)
+        for line in err.splitlines():
+            if "Time." in line or "Total.reads" in line:
+                print(f"[phase 7] quicked: {line.strip()}")
+        bench = [line for line in err.splitlines() if "Time.Benchmark" in line]
+        check(len(bench) == 1, "phase 7: no Time.Benchmark line")
+        print(f"[phase 7] quicked CLI, {len(pairs)} pairs in batches of 250: "
+              f"{wall:.3f} s wall ({bench[0].split('Benchmark')[1].strip()} "
+              f"Time.Benchmark) against phase 3's API {api_wall:.3f} s: "
+              f"{wall - api_wall:+.3f} s")
+        print("[phase 7] launches " + json.dumps(launches))
+        for name in ("banded_fill", "banded_traceback", "windowed_score"):
+            check(launches[name] > 0, f"phase 7 never launched {name}")
+        got = read_lines(out)
+        check(len(got) == len(pairs), f"phase 7: {len(got)} TSV lines")
+        bad = [i for i, (sc, cig) in enumerate(want)
+               if got[i] != tsv_line(sc, cig)]
+        check(not bad, f"phase 7: quicked lines {bad[:5]} differ from the "
+              f"host C cascade")
+        print(f"[phase 7] quicked: {len(pairs)} TSV lines equal to the host "
+              f"C cascade")
+
+        # edit-bpm: cutoff = max length, the fill past 128 band blocks
+        ebbs = []
+        real_prep = qb.prepare_banded_batch
+
+        def prep(*a, **kw):
+            b = real_prep(*a, **kw)
+            ebbs.append(b.EBB)
+            return b
+
+        n = min(100, len(pairs))
+        seq100 = os.path.join(td, "pairs100.seq")
+        seqio.write_seq_pairs(seq100, pairs[:n])
+        qb.prepare_banded_batch = prep
+        try:
+            err, wall, launches = cli_run(
+                ["-a", "edit-bpm", "-i", seq100, "-o", out, "-c", "correct"],
+                torch)
+        finally:
+            qb.prepare_banded_batch = real_prep
+        got = read_lines(out)
+        bad = [i for i in range(n)
+               if got[i].split("\t")[0] != str(want[i][0])]
+        check(not bad, f"phase 7: edit-bpm scores {bad[:5]} differ from "
+              f"the host C cascade")
+        correct = [line for line in err.splitlines()
+                   if "Alignments.Correct" in line]
+        check(correct and "(100.00 %)" in correct[0],
+              f"phase 7: edit-bpm --check correct: {correct}")
+        print(f"[phase 7] edit-bpm, {n} pairs: {wall:.3f} s, largest EBB "
+              f"{max(ebbs)}, {launches['banded_fill']} fill and "
+              f"{launches['banded_traceback']} traceback launches, scores "
+              f"equal to the host C cascade, {correct[0].strip()}")
+        check(launches["banded_fill"] > 0 and max(ebbs) > 128,
+              "phase 7: edit-bpm did not run the fill past 128 blocks")
+
+        # the other algorithms against the host C runtime and the API
+        n = min(200, len(pairs))
+        seq200 = os.path.join(td, "pairs200.seq")
+        seqio.write_seq_pairs(seq200, pairs[:n])
+        for algo, qa in (("edit-banded", QuickedAlgo.BANDED),
+                         ("edit-banded-hirschberg", QuickedAlgo.HIRSCHBERG),
+                         ("edit-windowed", QuickedAlgo.WINDOWED)):
+            for only_score in (False, True):
+                flags = ["--only-score"] if only_score else []
+                _, wall, launches = cli_run(
+                    ["-a", algo, "-i", seq200, "-o", out, *flags], torch)
+                got = read_lines(out)
+                host, oracle_ms = host_ms(
+                    lambda: cli_oracle(algo, only_score, pairs[:n]))
+                bad = [i for i in range(n) if got[i] != host[i]]
+                check(len(got) == n and not bad, f"phase 7: {algo} "
+                      f"{' '.join(flags)}: lines {bad[:5]} differ from the "
+                      f"host C runtime")
+                res = align_batch(pairs[:n], QuickedParams(
+                    algo=qa, only_score=only_score), device="cuda")
+                api = [tsv_line(res.score[i], res.cigar[i], res.status[i],
+                                only_score) for i in range(n)]
+                check(got == api, f"phase 7: {algo} "
+                      f"{' '.join(flags)} differs from api.align_batch")
+                used = sorted(k for k, v in launches.items() if v)
+                check(used, f"phase 7: {algo} launched no kernel")
+                print(f"[phase 7] {algo} {' '.join(flags)}: {n} lines equal "
+                      f"to the host C runtime ({oracle_ms / 1e3:.1f} s on "
+                      f"the host) and to api.align_batch, {wall:.3f} s, "
+                      f"kernels {used}")
+
+        # the module entry, profiled, with the memory report
+        seq50 = os.path.join(td, "pairs50.seq")
+        seqio.write_seq_pairs(seq50, pairs[:50])
+        prof = os.path.join(td, "prof")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "quicked_tpu_torch.tools.align_benchmark",
+             "-a", "quicked", "-i", seq50, "-o", out, "--profile", prof,
+             "--memory-report"], capture_output=True, text=True, timeout=600,
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+        check(r.returncode == 0, f"phase 7: the module entry exited "
+              f"{r.returncode}: {r.stderr[-2000:]}")
+        traces = os.listdir(prof) if os.path.isdir(prof) else []
+        check(len(traces) == 1, f"phase 7: trace files {traces}")
+        with open(os.path.join(prof, traces[0])) as f:
+            trace = f.read()
+        check("banded_fill" in trace, "phase 7: the trace names no "
+              "banded_fill kernel")
+        mem = r.stderr[r.stderr.index("[Memory]"):r.stderr.index(
+            "[Benchmark]")] if "[Memory]" in r.stderr else ""
+        dev = [line for line in mem.splitlines()
+               if line.strip().startswith("cuda:")]
+        check(dev and "peak 0 B" not in dev[0],
+              f"phase 7: [Memory] shows no CUDA device peak: {mem}")
+        check("FullFill.Planes" in mem, "phase 7: [Memory] has no "
+              "FullFill.Planes")
+        check(read_lines(out) == [tsv_line(*w) for w in want[:50]],
+              "phase 7: the module entry's lines differ from the host C "
+              "cascade")
+        print(f"[phase 7] module entry, 50 pairs, profiled: "
+              f"{time.perf_counter() - t0:.1f} s with the process start, "
+              f"trace {len(trace)} bytes naming banded_fill")
+        for line in mem.splitlines():
+            print(f"[phase 7] {line.rstrip()}")
+
+
 def _device_ms(evt):
     total = getattr(evt, "self_device_time_total", None)
     if total is None:
@@ -1770,11 +2015,12 @@ def main(argv=None) -> int:
         pool.drain()
         print(f"[plain] phase 2's plain versions done "
               f"{time.perf_counter() - t0:.1f} s after its kernels")
-        pairs, launches, p3 = phase3(generate, args, torch)
+        pairs, launches, p3, api_wall, want = phase3(generate, args, torch)
         p2.update(p3)
         long_launches, banded_launches = phase5(generate, long_pairs, torch)
         wfull_launches, p6 = phase6(pairs, torch, pool)
         p2.update(p6)
+        phase7(pairs, want, api_wall, torch)
         p2.update(check_recorded("10kbp", record_run(pairs, True), torch,
                                  pool, plain=True))
         rec = record_run(long_pairs, False)

@@ -5,8 +5,11 @@ under the proven bound) on an NVIDIA H100 through hand-written CUDA
 kernels (`csrc/`), bit-identical to the JAX package `quicked_tpu`, which
 stays the reference. The port imports nothing of `quicked_tpu`: it keeps
 its own copies of the host-only modules it needs (dna, cigar, params,
-generate, ops.batch_prep, ops.myers_np, utils.profiler, and the host C
-runtime in native/, which builds into build/quicked_tpu_torch/).
+generate, seqio, ops.batch_prep, ops.myers_np, ops.edit_dp,
+utils.profiler, utils.memreport, and the host C runtime in native/,
+which builds into build/quicked_tpu_torch/). Its command-line tools (align_benchmark,
+generate_dataset, quicked_harness) run as
+`python -m quicked_tpu_torch.tools.<name>`.
 
 Public surface, the JAX package's (`quicked_tpu/__init__.py`):
 

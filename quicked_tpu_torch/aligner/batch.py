@@ -34,6 +34,7 @@ from quicked_tpu_torch.ops.batch_prep import (extract_final_scores,
                                               prepare_banded_batch)
 from quicked_tpu_torch.ops.hirschberg_split_cuda import hirschberg_split
 from quicked_tpu_torch.params import QuickedAlgo, QuickedParams, QuickedStatus
+from quicked_tpu_torch.utils import memreport
 
 W = 64
 
@@ -149,6 +150,8 @@ def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
             chunk = max(FULL_FILL_BYTES_BUDGET // per_lane, 1)
         for s in range(0, len(idxs), chunk):
             sub = idxs[s:s + chunk]
+            if not only_score:
+                memreport.record("FullFill.Planes", per_lane * len(sub))
             batch = prepare_banded_batch(
                 [patterns[i] for i in sub], [texts[i] for i in sub],
                 [cutoffs[i] for i in sub], full=not only_score)
@@ -224,6 +227,9 @@ def hirschberg_level_splits_device(pats, txts, cos, mids, mids_r,
             fins_il += [int(mids[i]), int(mids_r[i])]
         batch = prepare_banded_batch(pats_il, txts_il, cos_il, full=False,
                                      text_finish=fins_il)
+        # the level's band words (pv and mv, 8 bytes each), which stay
+        # on the card: only four numbers a task come back
+        memreport.record("Hirschberg.LevelPlanes", batch.EBB * batch.B * 16)
         family = score_family(2 * len(idxs), ebb_p2) if deep else "fill"
         pll, sl, sr, ok = _hsplit_fused(batch, dev, family)
         for j, i in enumerate(idxs):

@@ -60,7 +60,11 @@
 //
 // FULL snapshots keep the (T, EBB, B) layout that csrc/banded_traceback.cu
 // reads: each 8-byte store of a warp lands in its own 32-byte sector, and
-// the pairs of a CTA fill neighbouring words of it.
+// the pairs of a CTA fill neighbouring words of it. A snapshot stores zero
+// in the rows outside the column's live band ([first, last] during the
+// sweep; for column 63, the band before and after the cut/shift), as the
+// host C fill writes them, where the XLA scan leaves stale words: the
+// traceback reads such a row when its path leaves the band.
 
 #include "qtt_common.cuh"
 
@@ -151,14 +155,21 @@ banded_fill_kernel(
   // snap + t * col_stride, one row every Bs words
   const size_t col_stride = (size_t)EBB * Bs;
   const size_t snap = (size_t)i0 * Bs + b;
-  auto snapshot = [&](long t) {
+  // rows outside [lo, hi] are stored as zero (see the note on FULL)
+  auto snapshot = [&](long t, int lo, int hi) {
     uint64_t* spv = mat_pv + snap + (size_t)t * col_stride;
     uint64_t* smv = mat_mv + snap + (size_t)t * col_stride;
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      if (i0 + s < EBB) {
-        spv[s * Bs] = pv[s];
-        smv[s * Bs] = mv[s];
+      const int i = i0 + s;
+      if (i < EBB) {
+        if (i >= lo && i <= hi) {
+          spv[s * Bs] = pv[s];
+          smv[s * Bs] = mv[s];
+        } else {
+          spv[s * Bs] = 0;
+          smv[s * Bs] = 0;
+        }
       }
     }
   };
@@ -249,7 +260,7 @@ banded_fill_kernel(
           carry = apply(i < first ? mk(P_ST, P_ST) : raw[s], carry);
         }
       }
-      if (FULL && j < W - 1) snapshot(t);
+      if (FULL && j < W - 1) snapshot(t, first, last);
     }
 
     // ---- band cut/shift (banded_jax.py:_maintenance), window roll ----
@@ -266,7 +277,7 @@ banded_fill_kernel(
     const bool do_shift = (long)(nb + 1) * W <= tfin;
     const bool cut_lower = (first + 2 < last) && (fv > W * (first + 1)) &&
                            (c_first1 + (fv - W * (first + 1)) > co);
-    const int old_last = last;
+    const int old_first = first, old_last = last;
     bool write_top = false;
     if (do_shift) {
       if (cut_lower && nb >= pro) ++first;
@@ -298,7 +309,8 @@ banded_fill_kernel(
       if (i0 + s < EBB) sc[s] = row(i0 + s + 1);
     sc_top = (nb + 1 + EBB - pro + 1) * W;
     sync();     // every read of the shared region is done
-    if (FULL) snapshot((long)nb * W + W - 1);
+    if (FULL)
+      snapshot((long)nb * W + W - 1, min(old_first, first), old_last);
   }
 
 #pragma unroll
@@ -341,6 +353,9 @@ banded_fill_stream_kernel(
   constexpr int S = MULTI_S;
   // carry maps by barrier parity: one barrier per round publishes them
   __shared__ int warp_map[2][MAX_WARPS];
+  // first and last before the cut/shift, for column 63's snapshot: in
+  // shared memory, since this instantiation sits at the 128-register cap
+  __shared__ int band0[2];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int tpp = blockDim.x, tid = threadIdx.x, b = blockIdx.x;
   const size_t Bs = (size_t)B;
@@ -379,14 +394,21 @@ banded_fill_stream_kernel(
     }
   };
   const size_t col_stride = (size_t)EBB * Bs;
-  auto snapshot = [&](long t, int s0) {
+  // rows outside [lo, hi] are stored as zero (see the note on FULL)
+  auto snapshot = [&](long t, int s0, int lo, int hi) {
     uint64_t* spv = mat_pv + (size_t)s0 * Bs + b + (size_t)t * col_stride;
     uint64_t* smv = mat_mv + (size_t)s0 * Bs + b + (size_t)t * col_stride;
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      if (s0 + s < EBB) {
-        spv[s * Bs] = pv[s];
-        smv[s * Bs] = mv[s];
+      const int i = s0 + s;
+      if (i < EBB) {
+        if (i >= lo && i <= hi) {
+          spv[s * Bs] = pv[s];
+          smv[s * Bs] = mv[s];
+        } else {
+          spv[s * Bs] = 0;
+          smv[s * Bs] = 0;
+        }
       }
     }
   };
@@ -479,7 +501,7 @@ banded_fill_stream_kernel(
             carry = apply(i < first ? mk(P_ST, P_ST) : raw[s], carry);
           }
         }
-        if (FULL && j < W - 1) snapshot(t, s0);
+        if (FULL && j < W - 1) snapshot(t, s0, first, last);
       }
     }
 
@@ -493,6 +515,10 @@ banded_fill_stream_kernel(
     const bool do_shift = (long)(nb + 1) * W <= tfin;
     const bool cut_lower = (first + 2 < last) && (fv > W * (first + 1)) &&
                            (c_first1 + (fv - W * (first + 1)) > co);
+    if (FULL && tid == 0) {
+      band0[0] = first;
+      band0[1] = last;
+    }
     __syncthreads();      // every read of the window is done
     if (do_shift) {
       if (cut_lower && nb >= pro) ++first;
@@ -529,7 +555,8 @@ banded_fill_stream_kernel(
     if (FULL)
       for (int r = 0; r < rounds; ++r) {
         load(r * seg + i0, nb, false);
-        snapshot((long)nb * W + W - 1, r * seg + i0);
+        snapshot((long)nb * W + W - 1, r * seg + i0, min(band0[0], first),
+                 band0[1]);
       }
   }
   if (tid == 0) {

@@ -1,6 +1,7 @@
-"""Time the windowed score, banded traceback, deep-band score and
-Hirschberg split kernels of another checkout of this repository against
-this one's, in turns on one card, at the shapes the aligner hands them.
+"""Time the windowed score, banded traceback, full fill, deep-band score
+and Hirschberg split kernels of another checkout of this repository
+against this one's, in turns on one card, at the shapes the aligner hands
+them.
 
     python3 -m quicked_tpu_torch.kernel_ab OTHER [--pairs N] [--length L]
                                            [--long-pairs N] [--long-length L]
@@ -11,8 +12,8 @@ root of the other checkout, for example the parent commit unpacked with
 slices (N pairs x L bp and the long-read pairs, made from the same seeds)
 are aligned once by this checkout while chip_smoke's `Recorder` keeps
 every windowed batch, one traceback chunk (the 10 kbp run's largest, the
-long-read run's first), every host `BandedBatch` the route sends to a
-deep-band kernel (the long-read run's stage 3 and split level 1 on the
+long-read run's first), each run's largest full-fill `BandedBatch`,
+every host `BandedBatch` the route sends to a deep-band kernel (the long-read run's stage 3 and split level 1 on the
 systolic kernel; the carry-scan kernel on BANDED score-only over 16 pairs
 x 30 kbp, also recorded) and the arguments of every split epilogue call
 (the long-read run's three split levels). The other checkout's package
@@ -20,14 +21,16 @@ is then imported in place of this one, so that its own wrappers launch
 its own kernels, built from its sources into its own build/ directory:
 only the wrappers' Python signatures, `windowed_score_staged(st, ws, ovl,
 hew_cells)`, `traceback_records(mat_pv, mat_mv, praw, traw, plen, tlen,
-prolog)`, `stage_banded(batch, device)`, `sysband_raw(st)`,
-`cscan_staged(st)` and `hirschberg_split(out, prolog, plen, tlen)`, must
-agree; each checkout stages a deep-band batch with its own
-`stage_banded`, so the staged layouts need not. Each recorded batch goes
-through both, the outputs must be equal (the systolic pass's ABORT flags,
-and its other lanes under its contract: scores, first and last, pv/mv on
-[first, last]; the split's feasibility flags, and its values on the
-feasible tasks), and both are timed by CUDA events in turns (other, this,
+prolog)`, `stage_banded(batch, device)`, `fill_staged(st)`,
+`sysband_raw(st)`, `cscan_staged(st)` and `hirschberg_split(out, prolog,
+plen, tlen)`, must agree; each checkout stages a banded batch with its
+own `stage_banded`, so the staged layouts need not. Each recorded batch
+goes through both, the outputs must be equal (the full fill's plane
+words where this one's are not zero, since a fill may store zero outside
+the live band where an earlier one kept stale words; the systolic
+pass's ABORT flags, and its other lanes under its contract: scores,
+first and last, pv/mv on [first, last]; the split's feasibility flags,
+and its values on the feasible tasks), and both are timed by CUDA events in turns (other, this,
 this, other), the median of 3 runs each; the split, shorter than its
 wrapper's host time, by its kernel's device time (torch.profiler), in the
 same turns. Exits non-zero if the outputs differ.
@@ -44,7 +47,8 @@ import sys
 PKG = "quicked_tpu_torch"
 
 
-MODULES = {"windowed_score_staged": "windowed_cuda",
+MODULES = {"fill_staged": "banded_cuda",
+           "windowed_score_staged": "windowed_cuda",
            "traceback_records": "banded_traceback_cuda",
            "stage_banded": "banded_cuda",
            "sysband_raw": "banded_sysband_cuda",
@@ -119,6 +123,18 @@ def cscan_differ(a, b):
     return any(not torch.equal(a[k], b[k]) for k in b)
 
 
+def fill_differ(a, b):
+    """Two full fills differ: another score window, final band or first
+    and last, or another plane word where this one's is not zero."""
+    import torch
+
+    if any(not torch.equal(a[k], b[k])
+           for k in ("scores_by_k", "pv", "mv", "first", "last")):
+        return True
+    return any(not torch.equal(torch.where(b[k] != 0, a[k], 0), b[k])
+               for k in ("mat_pv", "mat_mv"))
+
+
 def hsplit_differ(a, b):
     """Two splits differ: other feasibility flags, or another value on a
     feasible task (an infeasible task's values are unspecified in earlier
@@ -190,6 +206,7 @@ def main(argv=None) -> int:
     import chip_smoke as cs
 
     from quicked_tpu_torch import generate
+    from quicked_tpu_torch.ops import banded_cuda as bc
     from quicked_tpu_torch.ops import banded_traceback_cuda as btc
     from quicked_tpu_torch.ops import windowed_cuda as wc
     from quicked_tpu_torch.params import QuickedAlgo, QuickedParams
@@ -216,6 +233,12 @@ def main(argv=None) -> int:
                         f"ws {ws}, B {st.peq.shape[2]}",
                         lambda: other_windowed(st, ws, ovl, cells),
                         lambda: wc.windowed_score_staged(st, ws, ovl, cells))
+        st_o = other["stage_banded"](rec.full, "cuda")
+        st = bc.stage_banded(rec.full, "cuda")
+        ok &= turns(f"fill_full_{tag}", f"B {st.B}, EBB {st.EBB}, NB {st.NB}",
+                    lambda: other["fill_staged"](st_o),
+                    lambda: bc.fill_staged(st), fill_differ)
+        del st_o, st
         chunk = rec.chunk[0]
         ok &= turns(f"traceback_{tag}",
                     "B {2}, T {0}, EBB {1}".format(*chunk[0].shape),

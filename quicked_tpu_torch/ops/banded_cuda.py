@@ -153,7 +153,13 @@ def banded_scan_torch(st: StagedBanded) -> dict:
     _maintenance op for op, vectorized over lanes. The edge scores for
     the band cut are captured inside the column loop as the XLA scan
     does; the kernel reads them after the sweep as the Pallas kernel
-    does (both agree; see the note at banded_jax.py:116-122)."""
+    does (both agree; see the note at banded_jax.py:116-122).
+
+    A stored column holds zero in the rows outside its live band, as the
+    host C fill writes them (native/src/quicked_host.c, the full fill's
+    column loop), not the stale words the XLA scan leaves there: the
+    traceback reads such a row when its path leaves the band, and the C
+    walk sees zero there."""
     B, EBB, NB, full = st.B, st.EBB, st.NB, st.full
     dev = st.peq.device
     tfinish = st.lanes["tfinish"].long()
@@ -168,6 +174,7 @@ def banded_scan_torch(st: StagedBanded) -> dict:
     if full:
         mat_pv = torch.empty((NB * W, EBB, B), dtype=torch.int64, device=dev)
         mat_mv = torch.empty_like(mat_pv)
+        rows = torch.arange(EBB, device=dev)[:, None]
     dropped = []
     for nb in range(NB):
         # rows outside [min(first), max(last)] are inactive in every lane
@@ -197,16 +204,21 @@ def banded_scan_torch(st: StagedBanded) -> dict:
                 c_last = torch.where(active & (i == last), srow, c_last)
                 phin, mhin = phout, mhout
             if full:
-                mat_pv[t] = pv
-                mat_mv[t] = mv
+                keep = (rows >= first) & (rows <= last)
+                mat_pv[t] = torch.where(keep, pv, 0)
+                mat_mv[t] = torch.where(keep, mv, 0)
 
+        old_first, old_last = first, last
         pv, mv, scw, first, last, row0 = maintain(
             st, nb, pv, mv, scw, first, last, c_first1, c_last1, c_last)
         dropped.append(row0)
         if full:
-            # the stored 64th column reflects the shifted band
-            mat_pv[nb * W + W - 1] = pv
-            mat_mv[nb * W + W - 1] = mv
+            # the stored 64th column reflects the shifted band: the rows
+            # of the band before and after the shift, and the top row
+            keep = (rows >= torch.minimum(old_first, first)) & \
+                (rows <= old_last)
+            mat_pv[nb * W + W - 1] = torch.where(keep, pv, 0)
+            mat_mv[nb * W + W - 1] = torch.where(keep, mv, 0)
     out = dict(scores_by_k=torch.cat(
                    [torch.stack(dropped).reshape(NB, B), scw]).int(),
                pv=pv, mv=mv, first=first.int(), last=last.int())

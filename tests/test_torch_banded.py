@@ -19,6 +19,8 @@ from quicked_tpu.ops.banded_pallas import _untile_lanes, run_banded_pallas
 from quicked_tpu.ops.batch_prep import extract_final_scores, prepare_banded_batch
 from quicked_tpu_torch.ops import banded_cuda as bc
 
+from .test_torch_copies import jax_warmup_inline  # noqa: F401
+
 torch.set_num_threads(1)
 
 _FIELDS = ("scores_by_k", "pv_lo", "pv_hi", "mv_lo", "mv_hi", "first",
@@ -62,9 +64,27 @@ def test_torch_banded_score_parity(length, error, seed, ldiff, bw):
         assert scores[i] == model.score, i
 
 
+def _model_planes(batch, pairs, cutoffs):
+    """(pv, mv, live): the band columns of the JAX package's numpy model of
+    the C full fill (myers_np.banded_fill) in the port's (T, EBB, B) u64
+    layout, zero outside each column's live band as the C fill leaves
+    them; `live` marks the model's nonzero words."""
+    T = batch.NB * 64
+    pv = np.zeros((T, batch.EBB, batch.B), dtype=np.uint64)
+    mv = np.zeros_like(pv)
+    for b, (p, t) in enumerate(pairs):
+        fill = myers_np.banded_fill(myers_np.compile_pattern(p),
+                                    dna.encode(t), cutoffs[b])
+        pv[:len(t), :fill.ebb, b] = np.array(fill.PvM[1:], dtype=np.uint64)
+        mv[:len(t), :fill.ebb, b] = np.array(fill.MvM[1:], dtype=np.uint64)
+    return pv, mv, (pv != 0) | (mv != 0)
+
+
 def test_torch_banded_full_parity():
-    """Full variant: every stored band column equals the XLA scan's and
-    the Pallas kernel's snapshots."""
+    """Full variant: every stored band column equals the C fill's (the
+    numpy model's: zero outside the live band, where the traceback can
+    read when its path leaves the band), and the XLA scan's and the
+    Pallas kernel's snapshots in the live band."""
     pairs = _pairs(5, 200, 0.12, 7) + _pairs(2, 300, 0.2, 8, 1.15)
     pats = [p for p, _ in pairs]
     txts = [t for _, t in pairs]
@@ -72,12 +92,28 @@ def test_torch_banded_full_parity():
     batch = prepare_banded_batch(pats, txts, cutoffs, full=True)
     got = _port(batch)
     mats = ("mat_pv_lo", "mat_pv_hi", "mat_mv_lo", "mat_mv_hi")
-    _assert_same(run_banded(batch), got, _FIELDS + mats)
+    xla = run_banded(batch)
+    _assert_same(xla, got, _FIELDS)
     pal = run_banded_pallas(batch, interpret=True)
     _assert_same(pal, got, _FIELDS)
-    for name, tiled in zip(mats, pal["mats_tiled"]):
-        host = _untile_lanes(tiled)[:, :batch.EBB, :batch.B]
-        np.testing.assert_array_equal(host, got[name], err_msg=name)
+    tiles = {name: _untile_lanes(tiled)[:, :batch.EBB, :batch.B]
+             for name, tiled in zip(mats, pal["mats_tiled"])}
+    model_pv, model_mv, live = _model_planes(batch, pairs, cutoffs)
+    tlen = np.array([len(t) for t in txts])
+    cols = np.arange(batch.NB * 64)[:, None, None] < tlen[None, None, :]
+    assert live.any() and (~live & cols).any()
+    for name in mats:
+        word = got[name].astype(np.uint64)
+        model = model_pv if "pv" in name else model_mv
+        half = (model & np.uint64(0xFFFFFFFF)) if name.endswith("lo") \
+            else (model >> np.uint64(32))
+        np.testing.assert_array_equal(np.where(cols, word, 0),
+                                      np.where(cols, half, 0),
+                                      err_msg=name)
+        for ref in (xla[name], tiles[name]):
+            np.testing.assert_array_equal(np.where(live, word, 0),
+                                          np.where(live, ref, 0),
+                                          err_msg=name)
 
 
 def test_torch_banded_text_finish():
@@ -124,3 +160,25 @@ def test_torch_stage_banded_fuses_words():
     np.testing.assert_array_equal(lo, batch.peq_lo)
     np.testing.assert_array_equal(hi, batch.peq_hi)
     assert st.text.dtype == torch.uint8
+
+
+def test_torch_banded_traceback_leaves_the_band():
+    """A BANDED pair whose traceback path steps below the live band (two
+    250 bp indels at 15% bandwidth): the port's CIGAR is the C walk's,
+    which reads zero there, as the JAX package's host lane and its numpy
+    model give it (its XLA scan's stale words gave 582 for 577)."""
+    from quicked_tpu.api import align_batch as jax_align_batch
+    from quicked_tpu.params import QuickedAlgo as JaxAlgo
+    from quicked_tpu.params import QuickedParams as JaxParams
+    from quicked_tpu_torch.api import align_batch
+    from quicked_tpu_torch.params import QuickedAlgo, QuickedParams
+
+    pair = _pairs(8, 2000, 0.1, 2002, indels_num=4, indels_length=250)[5]
+    got = align_batch([pair], QuickedParams(algo=QuickedAlgo.BANDED,
+                                            only_score=False), device="cpu")
+    for use_kernels in (True, False):
+        want = jax_align_batch([pair], JaxParams(
+            algo=JaxAlgo.BANDED, only_score=False, use_kernels=use_kernels))
+        assert (int(got.score[0]), got.cigar[0]) == \
+            (int(want.score[0]), want.cigar[0])
+    assert int(got.score[0]) == 577

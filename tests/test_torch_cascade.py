@@ -13,6 +13,8 @@ from quicked_tpu.params import QuickedAlgo, QuickedParams, QuickedStatus
 from quicked_tpu.utils.profiler import PhaseTimers
 from quicked_tpu_torch import api
 
+from .test_torch_copies import jax_warmup_inline  # noqa: F401
+
 torch.set_num_threads(1)
 
 

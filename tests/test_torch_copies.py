@@ -2,6 +2,9 @@
 originals: the same seeded inputs through both, outputs identical."""
 
 import dataclasses
+import io
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -18,6 +21,26 @@ from quicked_tpu.params import QuickedParams as JaxParams
 from quicked_tpu_torch import api, cigar, dna, generate, native
 from quicked_tpu_torch.ops import batch_prep, myers_np
 from quicked_tpu_torch.params import QuickedAlgo, QuickedParams
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_warmup_inline():
+    """Run the JAX package's cold bucket shapes inline for this module,
+    not on its warmup thread, and leave that thread idle at the end, so
+    that no compile queued here is still running when another module's
+    test waits on the thread. Deferral only changes where a batch runs,
+    never its result. The port's test modules that call the JAX package
+    import this fixture."""
+    from quicked_tpu.utils import warmup
+
+    old = os.environ.get("QUICKED_TPU_ASYNC_WARMUP")
+    os.environ["QUICKED_TPU_ASYNC_WARMUP"] = "0"
+    yield
+    if old is None:
+        del os.environ["QUICKED_TPU_ASYNC_WARMUP"]
+    else:
+        os.environ["QUICKED_TPU_ASYNC_WARMUP"] = old
+    warmup.wait_idle()
 
 
 def _pairs(n=6, length=400, seed=5):
@@ -221,11 +244,140 @@ def check_expand_window_records():
                                                    n=n)
 
 
+def check_seqio():
+    """read_seq_pairs, write_seq_pairs, read_seq_batches over byte ranges
+    from pair_start_at, and record_marker, on a LF file, a CRLF file and a
+    flipped ('<' first) file; the line formatters."""
+    from quicked_tpu import seqio as jax_seqio
+    from quicked_tpu_torch import seqio
+
+    pairs = _pairs(7, 120, seed=21) + [("", "ACGT"), ("NNAC", "")]
+    with tempfile.TemporaryDirectory() as td:
+        seqio_cases(seqio, jax_seqio, pairs, td)
+    for args in ((3, "2M1X"), (4, None)):
+        assert seqio.format_output_lite(*args) == \
+            jax_seqio.format_output_lite(*args)
+    for only_score in (False, True):
+        assert seqio.format_output_error(only_score) == \
+            jax_seqio.format_output_error(only_score)
+    assert seqio.format_output_full("AC", "AG", 1, "1M1X") == \
+        jax_seqio.format_output_full("AC", "AG", 1, "1M1X")
+
+
+def seqio_cases(seqio, jax_seqio, pairs, td):
+    lf = os.path.join(td, "lf.seq")
+    seqio.write_seq_pairs(lf, pairs)
+    want = os.path.join(td, "want.seq")
+    jax_seqio.write_seq_pairs(want, pairs)
+    with open(lf, "rb") as f, open(want, "rb") as g:
+        data = f.read()
+        assert data == g.read()
+    crlf = os.path.join(td, "crlf.seq")
+    with open(crlf, "wb") as f:
+        f.write(data.replace(b"\n", b"\r\n"))
+    flip = os.path.join(td, "flip.seq")
+    with open(flip, "wb") as f:
+        f.write(b"".join(b"<" + line[1:] + b"\n" if line[:1] == b">" else
+                         b">" + line[1:] + b"\n"
+                         for line in data.splitlines()))
+    for path in (lf, crlf, flip):
+        assert list(seqio.read_seq_pairs(path)) == \
+            list(jax_seqio.read_seq_pairs(path))
+        marker = seqio.record_marker(path)
+        assert marker == jax_seqio.record_marker(path)
+        size = os.path.getsize(path)
+        cuts = [seqio.pair_start_at(path, pos, chunk_bytes=37,
+                                    marker=marker)
+                for pos in (0, size // 3, size // 2, size)]
+        assert cuts == [jax_seqio.pair_start_at(path, pos, chunk_bytes=37,
+                                                marker=marker)
+                        for pos in (0, size // 3, size // 2, size)]
+        for bs in (1, 3, 100):
+            for start, end in ((0, None), (cuts[1], cuts[2]),
+                               (cuts[2], cuts[3])):
+                got = list(seqio.read_seq_batches(path, bs, start=start,
+                                                  end=end))
+                assert got == list(jax_seqio.read_seq_batches(
+                    path, bs, start=start, end=end)), (path, bs, start)
+    assert list(seqio.read_seq_pairs(crlf))[0][0].endswith("\r")
+    assert seqio.record_marker(flip) == b"<"
+
+
+def check_edit_dp():
+    """Distances (encoded and raw), full and banded matrices, and the
+    traceback on seeded pairs, N and lower-case characters among them."""
+    from quicked_tpu.ops import edit_dp as jax_dp
+    from quicked_tpu_torch.ops import edit_dp
+
+    pairs = _pairs(4, 150, seed=23) + [("ACGTNacgt", "ACGTTACGN"),
+                                       ("A", "ACGTACGT"), ("", "AC")]
+    for p, t in pairs:
+        for enc in (True, False):
+            assert edit_dp.edit_distance(p, t, encoded=enc) == \
+                jax_dp.edit_distance(p, t, encoded=enc)
+        D = edit_dp.edit_dp_matrix(p, t)
+        np.testing.assert_array_equal(D, jax_dp.edit_dp_matrix(p, t))
+        assert edit_dp.edit_dp_traceback(D, p, t) == \
+            jax_dp.edit_dp_traceback(D, p, t)
+        for bk in (0, 5, 40):
+            Db = edit_dp.edit_dp_matrix_banded(p, t, bk)
+            np.testing.assert_array_equal(
+                Db, jax_dp.edit_dp_matrix_banded(p, t, bk))
+            assert edit_dp.edit_dp_traceback(Db, p, t) == \
+                jax_dp.edit_dp_traceback(Db, p, t)
+
+
+def check_profiler():
+    """Counter.print, Timer.print and _human_time byte-equal for the same
+    samples; add_repeat bit-exact with the loop it replaces."""
+    from quicked_tpu.utils import profiler as jp
+    from quicked_tpu_torch.utils import profiler
+
+    rng = np.random.default_rng(27)
+    for samples in ([], [1] * 5, rng.integers(0, 5000, 40).tolist(),
+                    [3_000_000_000, 7]):
+        c, jc = profiler.Counter(), jp.Counter()
+        tot, jtot = profiler.Counter(), jp.Counter()
+        for s in samples:
+            c.add(s)
+            jc.add(s)
+        tot.add(sum(samples) * 3)
+        jtot.add(sum(samples) * 3)
+        for args, jargs in (((None, "bases     "), (None, "bases     ")),
+                            ((tot, "alg       "), (jtot, "alg       ")),
+                            ((profiler.Counter(), ""), (jp.Counter(), ""))):
+            out, jout = io.StringIO(), io.StringIO()
+            c.print(out, *args)
+            jc.print(jout, *jargs)
+            assert out.getvalue() == jout.getvalue()
+    c, jc = profiler.Counter(), jp.Counter()
+    c.add(3)
+    jc.add(3)
+    c.add_repeat(2, 4)
+    jc.add_repeat(2, 4)
+    c.add_repeat(1, 0)
+    assert (c.total, c.samples, c.min, c.max, c.mean(), c.stddev()) == \
+        (jc.total, jc.samples, jc.min, jc.max, jc.mean(), jc.stddev())
+    for ns in (0, 999, 1_500, 2_000_000, 3_000_000_000, 90_000_000_000):
+        assert profiler._human_time(ns) == jp._human_time(ns)
+        t, jt = profiler.Timer(), jp.Timer()
+        ref, jref = profiler.Timer(), jp.Timer()
+        t.time_ns, jt.time_ns = ns, ns
+        ref.time_ns, jref.time_ns = 2 * ns, 2 * ns
+        for a, b in ((None, None), (ref, jref), (profiler.Timer(),
+                                                  jp.Timer())):
+            out, jout = io.StringIO(), io.StringIO()
+            t.print(out, a)
+            jt.print(jout, b)
+            assert out.getvalue() == jout.getvalue()
+
+
 CASES = {f.__name__[len("check_"):]: f for f in (
     check_generate, check_prepare_banded_batch, check_band_geometry,
     check_hirschberg_split_fast, check_cigar, check_align_one_np,
     check_native, check_native_windowed, check_native_windowed_full,
-    check_expand_window_records)}
+    check_expand_window_records, check_seqio, check_edit_dp,
+    check_profiler)}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

@@ -17,6 +17,8 @@ from quicked_tpu.ops.batch_prep import prepare_banded_batch
 from quicked_tpu_torch.ops import banded_cscan_cuda as cc
 from quicked_tpu_torch.ops import banded_cuda as bc
 
+from .test_torch_copies import jax_warmup_inline  # noqa: F401
+
 torch.set_num_threads(1)
 
 KEYS = ("scores_by_k", "pv_lo", "pv_hi", "mv_lo", "mv_hi", "first",

@@ -15,6 +15,8 @@ from quicked_tpu.params import QuickedParams, QuickedStatus
 from quicked_tpu_torch.aligner import batch, cascade
 from quicked_tpu_torch.aligner import hirschberg as hb
 
+from .test_torch_copies import jax_warmup_inline  # noqa: F401
+
 torch.set_num_threads(1)
 
 

@@ -32,6 +32,8 @@ from quicked_tpu_torch.ops import banded_sysband_cuda as sb
 from quicked_tpu_torch.ops import hirschberg_split_cuda as hs
 from quicked_tpu_torch.ops import myers_np as port_np
 
+from .test_torch_copies import jax_warmup_inline  # noqa: F401
+
 torch.set_num_threads(1)
 W = 64
 

@@ -21,6 +21,8 @@ from quicked_tpu_torch import api
 from quicked_tpu_torch.aligner import batch, cascade
 from quicked_tpu_torch.aligner import hirschberg as hb
 
+from .test_torch_copies import jax_warmup_inline  # noqa: F401
+
 torch.set_num_threads(1)
 
 ROUTE_CONSTANTS = ("PALLAS_MAX_EBB", "CSCAN_MIN_EBB", "CSCAN_MAX_B",

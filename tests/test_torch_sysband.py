@@ -20,6 +20,8 @@ from quicked_tpu.ops.batch_prep import prepare_banded_batch
 from quicked_tpu_torch.ops import banded_cuda as bc
 from quicked_tpu_torch.ops import banded_sysband_cuda as sb
 
+from .test_torch_copies import jax_warmup_inline  # noqa: F401
+
 torch.set_num_threads(1)
 
 

@@ -10,22 +10,30 @@ import pytest
 import torch
 
 from quicked_tpu import generate
-from quicked_tpu.ops.banded_jax import run_banded
 from quicked_tpu.ops.banded_traceback_jax import (prep_raw_frames,
                                                   traceback_records)
+from quicked_tpu.ops import myers_np
 from quicked_tpu.ops.batch_prep import prepare_banded_batch
 from quicked_tpu.ops.traceback_np import banded_traceback_pair
 from quicked_tpu_torch.ops import banded_cuda as bc
 from quicked_tpu_torch.ops import banded_traceback_cuda as btc
 
+from .test_torch_copies import jax_warmup_inline  # noqa: F401
+
 torch.set_num_threads(1)
 
 
 def _check(pairs, cutoffs):
+    """Both walks read the same planes, the port's fill's (held to the
+    JAX package's fill by test_torch_banded.py), the JAX walks in their
+    u32 halves; the op strings also equal the numpy model's C walk."""
     pats = [p for p, _ in pairs]
     txts = [t for _, t in pairs]
     b = prepare_banded_batch(pats, txts, cutoffs, full=True, pad_to_b=8)
-    ref = run_banded(b)
+    out = bc.run_banded_cuda(b, device="cpu")
+    ref = {}
+    for k in ("mat_pv", "mat_mv"):
+        ref[k + "_lo"], ref[k + "_hi"] = bc.split_u64(out[k])
     T = ref["mat_pv_lo"].shape[0]
     PP = 32 * ((max(len(p) for p in pats) + 31) // 32)
     praw, traw = prep_raw_frames([p.encode() for p in pats],
@@ -37,7 +45,6 @@ def _check(pairs, cutoffs):
         jnp.asarray(praw), jnp.asarray(traw), jnp.asarray(b.plen),
         jnp.asarray(b.tlen), jnp.asarray(b.prolog), EBB=b.EBB, PP=PP)
 
-    out = bc.run_banded_cuda(b, device="cpu")
     got = btc.traceback_records(
         out["mat_pv"], out["mat_mv"], torch.from_numpy(praw),
         torch.from_numpy(traw), torch.from_numpy(b.plen),
@@ -57,6 +64,8 @@ def _check(pairs, cutoffs):
         np.frombuffer(txts[i].encode(), dtype=np.uint8),
         int(b.prolog[i])) for i in range(len(pairs))]
     assert ops == spec
+    assert ops == [myers_np.banded_align(p, t, c)[1]
+                   for (p, t), c in zip(pairs, cutoffs)]
 
 
 @pytest.mark.parametrize("length,error,seed,ldiff", [

@@ -13,6 +13,8 @@ from quicked_tpu.ops import myers_np
 from quicked_tpu.ops import windowed_jax as wj
 from quicked_tpu_torch.ops import windowed_cuda as wc
 
+from .test_torch_copies import jax_warmup_inline  # noqa: F401
+
 torch.set_num_threads(1)
 
 

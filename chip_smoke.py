@@ -91,6 +91,16 @@ Run from the repository root. It builds the port's CUDA kernels from
            one subprocess run of the module entry with `--profile` (the
            trace names the fill) and `--memory-report` (the card's peak,
            the full fill's planes);
+  phase 8  the multi-device layer (`quicked_tpu_torch.parallel`) on the
+           card: `dryrun_multichip` over every card; the phase-3 and
+           phase-5 pairs again under `use_mesh` on three shards of
+           cuda:0 (uneven lanes and task runs), every status, score and
+           CIGAR equal to the unmeshed run's and every kernel that run
+           launched launched again, each wall beside the unmeshed one;
+           two `distributed_align` processes on cuda:0 (the torchrun
+           environment, gloo) over phase 7's .seq file with interleaved
+           sharding, the merged TSV equal to phase 7's `-a quicked`
+           lines; one run of `examples_torch/mesh_pipeline.py`;
   recorded both slices aligned once more, untimed, while `Recorder`
            keeps what they hand the windowed kernel (stage 1, stage 2
            forward and reverse), the traceback (the 10 kbp run's
@@ -1509,7 +1519,7 @@ def phase3(gen, args, torch):
           f"chunks: B={st.B} EBB={st.EBB} NB={st.NB}: kernel {ms:.3f} ms "
           f"(bound {b_ms:.3f} ms, {b_by})")
     return pairs, launches, dict(fill_10kbp_chunk=dict(
-        ms=ms, bound_ms=b_ms, bound_by=b_by)), wall, want
+        ms=ms, bound_ms=b_ms, bound_by=b_by)), wall, want, res
 
 
 def host_cascade(pairs, params):
@@ -1620,7 +1630,7 @@ def phase5(gen, pairs, torch):
           "BANDED score run differs from the host C banded kernel")
     print(f"[phase 5] oracle: host C banded kernel, {len(bpairs)} scores "
           f"equal")
-    return launches, blaunches
+    return launches, blaunches, res, wall
 
 
 def phase6(pairs, torch, pool):
@@ -1762,7 +1772,7 @@ def phase7(pairs, want, api_wall, torch):
     without `--only-score`, on the first 200, every line equal to the host
     C runtime's (`cli_oracle`) and to `api.align_batch` on the card; then
     one run of the module entry in a subprocess with `--profile` and
-    `--memory-report`."""
+    `--memory-report`. Returns the `-a quicked` TSV lines."""
     import tempfile
 
     from quicked_tpu_torch import seqio
@@ -1789,7 +1799,7 @@ def phase7(pairs, want, api_wall, torch):
         print("[phase 7] launches " + json.dumps(launches))
         for name in ("banded_fill", "banded_traceback", "windowed_score"):
             check(launches[name] > 0, f"phase 7 never launched {name}")
-        got = read_lines(out)
+        got = quicked_lines = read_lines(out)
         check(len(got) == len(pairs), f"phase 7: {len(got)} TSV lines")
         bad = [i for i, (sc, cig) in enumerate(want)
                if got[i] != tsv_line(sc, cig)]
@@ -1898,6 +1908,98 @@ def phase7(pairs, want, api_wall, torch):
               f"trace {len(trace)} bytes naming banded_fill")
         for line in mem.splitlines():
             print(f"[phase 7] {line.rstrip()}")
+    return quicked_lines
+
+
+def phase8(runs, quicked_lines, smi, torch):
+    """The multi-device layer on the card: `dryrun_multichip` over every
+    card; each run of `runs` (tag, pairs, its unmeshed result, wall and
+    launches) again under `use_mesh` on three shards of cuda:0, every
+    status, score and CIGAR equal to the unmeshed run's and every kernel
+    it launched launched again; two `distributed_align` processes on
+    cuda:0 over phase 7's pairs, interleaved in two 16 MiB chunks, the
+    merged TSV equal to phase 7's `-a quicked` lines; one run of the mesh
+    example."""
+    import tempfile
+
+    from quicked_tpu_torch import seqio
+    from quicked_tpu_torch.api import BatchAligner
+    from quicked_tpu_torch.params import QuickedParams
+    from quicked_tpu_torch.parallel.distributed import CHUNK_BYTES
+    from quicked_tpu_torch.parallel.dryrun import dryrun_multichip
+    from quicked_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from quicked_tpu_torch.parallel.multicard_check import (
+        CheckFailure, run_distributed)
+
+    print(f"[phase 8] card: {smi}")
+    n = torch.cuda.device_count()
+    _, wall, launches, _ = run_counted(lambda: dryrun_multichip(n), torch)
+    print(f"[phase 8] dryrun_multichip({n}) passed in {wall:.3f} s, "
+          f"launches " + json.dumps(launches))
+
+    mesh = make_mesh(devices=["cuda:0"] * 3)
+    aligner = BatchAligner(QuickedParams(), device="cuda")
+    for tag, pairs, base, base_wall, base_launches in runs:
+        with use_mesh(mesh):
+            res, wall, launches, aborts = run_counted(
+                lambda: aligner.align(pairs), torch)
+        bad = [i for i in range(len(pairs))
+               if (int(res.status[i]), int(res.score[i]), res.cigar[i])
+               != (int(base.status[i]), int(base.score[i]), base.cigar[i])]
+        check(not bad, f"phase 8: {tag} pairs {bad[:5]} differ under the "
+              f"mesh")
+        missing = [k for k, v in base_launches.items()
+                   if v and not launches[k]]
+        check(not missing, f"phase 8: {tag} under the mesh never launched "
+              f"{missing}")
+        print(f"[phase 8] {tag}, {len(pairs)} pairs under a mesh of 3 "
+              f"shards of cuda:0: {wall:.3f} s against {base_wall:.3f} s "
+              f"unmeshed ({smi}); every status, score and CIGAR equal; "
+              f"systolic ABORT lanes {aborts}")
+        print(f"[phase 8] {tag} launches under the mesh "
+              + json.dumps(launches) + " unmeshed "
+              + json.dumps(base_launches))
+
+    with tempfile.TemporaryDirectory() as td:
+        seq = os.path.join(td, "pairs.seq")
+        out = os.path.join(td, "out.tsv")
+        seqio.write_seq_pairs(seq, runs[0][1])
+        size = os.path.getsize(seq)
+        check(CHUNK_BYTES < size <= 2 * CHUNK_BYTES, f"phase 8: the .seq "
+              f"file's {size} bytes are not two interleaved chunks")
+        try:
+            wall = run_distributed(seq, out, 2, "interleaved")
+        except CheckFailure as e:
+            check(False, f"phase 8: {e}")
+        got = read_lines(out)
+        bad = [i for i in range(len(quicked_lines))
+               if i >= len(got) or got[i] != quicked_lines[i]]
+        check(len(got) == len(quicked_lines) and not bad,
+              f"phase 8: distributed_align lines {bad[:5]} differ from "
+              f"phase 7's")
+        print(f"[phase 8] distributed_align, 2 processes on cuda:0 (gloo, "
+              f"interleaved, {size} bytes in 2 chunks): {len(got)} lines "
+              f"equal to phase 7's -a quicked TSV, {wall:.1f} s with the "
+              f"process starts")
+
+    t0 = time.perf_counter()
+    example = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples_torch",
+                                      "mesh_pipeline.py")],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        stdout, stderr = example.communicate(timeout=600)
+    finally:
+        if example.poll() is None:
+            example.kill()
+            example.wait()
+    check(example.returncode == 0 and "devices:" in stdout,
+          f"phase 8: examples_torch/mesh_pipeline.py exited "
+          f"{example.returncode}: {stderr[-2000:]}")
+    for line in stdout.splitlines()[:2]:
+        print(f"[phase 8] mesh_pipeline.py: {line}")
+    print(f"[phase 8] mesh_pipeline.py on the card in "
+          f"{time.perf_counter() - t0:.1f} s with the process start")
 
 
 def _device_ms(evt):
@@ -1969,8 +2071,9 @@ def main(argv=None) -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60)
-        print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-              else "nvidia-smi: no output")
+        card = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+                else "nvidia-smi: no output")
+        print(card)
         clk = subprocess.run(
             ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
              "--format=csv,noheader,nounits"], capture_output=True,
@@ -2015,12 +2118,18 @@ def main(argv=None) -> int:
         pool.drain()
         print(f"[plain] phase 2's plain versions done "
               f"{time.perf_counter() - t0:.1f} s after its kernels")
-        pairs, launches, p3, api_wall, want = phase3(generate, args, torch)
+        pairs, launches, p3, api_wall, want, res = phase3(generate, args,
+                                                          torch)
         p2.update(p3)
-        long_launches, banded_launches = phase5(generate, long_pairs, torch)
+        long_launches, banded_launches, long_res, long_wall = phase5(
+            generate, long_pairs, torch)
         wfull_launches, p6 = phase6(pairs, torch, pool)
         p2.update(p6)
-        phase7(pairs, want, api_wall, torch)
+        quicked_lines = phase7(pairs, want, api_wall, torch)
+        phase8([("10 kbp", pairs, res, api_wall, launches),
+                ("long-read", long_pairs, long_res, long_wall,
+                 long_launches)], quicked_lines, card, torch)
+        del res, long_res
         p2.update(check_recorded("10kbp", record_run(pairs, True), torch,
                                  pool, plain=True))
         rec = record_run(long_pairs, False)

@@ -1,0 +1,25 @@
+"""Basic example: align two sequences with the default QUICKED algorithm
+(examples/basic.c parity) through quicked_tpu_torch, on the card."""
+
+import argparse
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from quicked_tpu_torch.api import QuickedAligner
+
+ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+ap.add_argument("--device", default="cuda",
+                help="cuda (the default) or cpu (the plain PyTorch versions)")
+args = ap.parse_args()
+
+aligner = QuickedAligner(device=args.device)   # default params: QUICKED
+
+pattern = "ACGT"
+text = "ACTT"
+
+print(f"Aligning '{pattern}' and '{text}' using Quicked")
+aligner.align(pattern, text)
+print(f"Score: {aligner.get_score()}")
+print(f"CIGAR: {aligner.get_cigar()}")

@@ -11,6 +11,10 @@ loads what is already there.
 
 Every C entry launches on the stream it is given, allocates nothing and
 returns `cudaGetLastError()`; `Kernel.launch` raises if that is not 0.
+`Kernel.launch` calls the entry with the card of the kernel's tensors as
+the current CUDA device and that card's current stream: the runtime
+launches on the current device, and an entry's `cudaFuncSetAttribute`
+(the shared-memory opt-in) applies to the current device only.
 """
 
 from __future__ import annotations
@@ -22,6 +26,10 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
+
+from quicked_tpu_torch.device import stream_ptr
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -149,14 +157,18 @@ class Kernel:
         self.fallbacks = 0
         self._fn = None
 
-    def launch(self, *args) -> None:
+    def launch(self, device, *args) -> None:
+        """Launch on `device`, the card that holds the kernel's tensors:
+        under a `torch.cuda.device` guard of that card, with its current
+        stream as the entry's last argument."""
         if self._fn is None:
             lib = load()
             fn = getattr(lib, self.symbol)
             fn.restype = ctypes.c_int
             fn.argtypes = self.argtypes
             self._fn = fn
-        err = self._fn(*args)
+        with torch.cuda.device(device):
+            err = self._fn(*args, stream_ptr(device))
         self.launches += 1
         if err != 0:
             msg = load().qtt_error_string(err).decode()

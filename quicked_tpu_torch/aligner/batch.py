@@ -10,10 +10,12 @@ bands, the systolic kernel for deep ones, the carry-scan
 kernel for the rest of the deep batches and for tiny ones. Full batches
 take the full fill plus the on-device traceback. A Hirschberg split level
 runs its score pass and the split epilogue on the card, whatever its
-band's depth, and reads back four numbers per task. What the JAX package
-routes by venue (host C lanes, rate probes, cold-shape deferral, meshes,
-the QUICKED_TPU_* switches) is not carried over: routing is by geometry
-only.
+band's depth, and reads back four numbers per task. Under a device mesh
+(`ACTIVE_MESH`, set by `parallel.mesh.use_mesh`) each chunk's lanes and
+each split level's tasks are sharded over the mesh's devices, with the
+kernels the unmeshed run picks. What the JAX package routes by venue
+(host C lanes, rate probes, cold-shape deferral, the QUICKED_TPU_*
+switches) is not carried over: routing is by geometry only.
 """
 
 from __future__ import annotations
@@ -53,6 +55,11 @@ CSCAN_MAX_B = 32
 SYSBAND_MIN_EBB = 192
 SYSBAND_MAX_EBB = 16000
 MIN_LANES = 8       # the JAX package's lane floor for shallow buckets
+
+# The device mesh of `parallel.mesh.use_mesh`: while it is set, every
+# score pass, full fill, split level and windowed bound the entries run
+# is sharded on lanes over its devices (bit-exact with the unmeshed run).
+ACTIVE_MESH = None
 
 
 @dataclasses.dataclass
@@ -107,6 +114,17 @@ def score_staged(st, family: str) -> dict:
     return fill_staged(st)
 
 
+def active_mesh(dev: torch.device):
+    """ACTIVE_MESH (or None) for an entry running on `dev`; raises
+    ValueError when the mesh's devices are not of `dev`'s type."""
+    mesh = ACTIVE_MESH
+    if mesh is not None and mesh.devices[0].type != dev.type:
+        raise ValueError(f"the active mesh's devices are "
+                         f"{mesh.devices[0].type}, the entry's device is "
+                         f"{dev}")
+    return mesh
+
+
 def score_key(geo: myers_np.BandGeometry, finish: int) -> tuple[int, int]:
     """Bucket key of a score pass over `finish` text columns: (pow2 of its
     64-column blocks, pow2 of its score band's blocks)."""
@@ -132,8 +150,13 @@ def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
     Returns (scores int64 array, ops list of str|None).
 
     `raws`: optional (praws, traws) raw byte strings for pre-encoded
-    inputs; the traceback's M test compares raw characters."""
+    inputs; the traceback's M test compares raw characters.
+
+    Under a mesh each chunk's lanes are sharded (`parallel.mesh.
+    banded_shards`), the score kernel decided on the chunk's whole lane
+    count, and every shard's fill is launched before any is read back."""
     dev = resolve_device(device)
+    mesh = active_mesh(dev)
     n = len(patterns)
     scores = np.zeros(n, dtype=np.int64)
     ops_out: list = [None] * n
@@ -155,30 +178,41 @@ def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
             batch = prepare_banded_batch(
                 [patterns[i] for i in sub], [texts[i] for i in sub],
                 [cutoffs[i] for i in sub], full=not only_score)
-            st = stage_banded(batch, dev)
-            out = (score_staged(st, score_family(len(sub), ebb_p2))
-                   if only_score else fill_staged(st))
-            sc = extract_final_scores(batch, out["scores_by_k"].cpu().numpy())
-            scores[sub] = sc[:len(sub)]
-            if only_score:
-                continue
-            praws = [raws[0][i] if raws else _raw_bytes(patterns[i])
-                     for i in sub]
-            traws = [raws[1][i] if raws else _raw_bytes(texts[i])
-                     for i in sub]
-            ops = traceback_ops(out["mat_pv"], out["mat_mv"], praws, traws,
-                                batch.plen, batch.tlen, batch.prolog,
-                                len(sub))
-            del out     # free this chunk's planes before the next one
-            for j, i in enumerate(sub):
-                ops_out[i] = ops[j]
+            family = score_family(len(sub), ebb_p2) if only_score else "fill"
+            if mesh is None:
+                parts = [(0, batch, score_staged(stage_banded(batch, dev),
+                                                 family))]
+            else:
+                from quicked_tpu_torch.parallel.mesh import banded_shards
+                parts = banded_shards(batch, mesh, family)
+            # (lane offset, host batch, device outputs) per shard; lanes
+            # past the chunk's pairs are the shards' padding
+            for lo, part, out in parts:
+                live = sub[lo:lo + part.B]
+                if not live:
+                    continue
+                sc = extract_final_scores(part,
+                                          out["scores_by_k"].cpu().numpy())
+                scores[live] = sc[:len(live)]
+                if only_score:
+                    continue
+                praws = [raws[0][i] if raws else _raw_bytes(patterns[i])
+                         for i in live]
+                traws = [raws[1][i] if raws else _raw_bytes(texts[i])
+                         for i in live]
+                ops = traceback_ops(out["mat_pv"], out["mat_mv"], praws,
+                                    traws, part.plen, part.tlen, part.prolog,
+                                    len(live))
+                for j, i in enumerate(live):
+                    ops_out[i] = ops[j]
+            del parts   # free this chunk's planes before the next one
     return scores, ops_out
 
 
-def _hsplit_fused(batch, dev, family: str):
+def _hsplit_launch(batch, dev, family: str):
     """The score pass of `family` and the split epilogue over an
-    interleaved forward/reverse level batch, on `dev`; returns the four
-    per-task vectors (pll, score_l, score_r, feasible) as numpy."""
+    interleaved forward/reverse level batch, launched on `dev`; returns
+    the four per-task vectors (pll, score_l, score_r, feasible) there."""
     st = stage_banded(batch, dev)
     out = score_staged(st, family)
 
@@ -186,9 +220,13 @@ def _hsplit_fused(batch, dev, family: str):
         return torch.from_numpy(np.ascontiguousarray(
             a[0::2], dtype=np.int32)).to(dev)
 
-    res = hirschberg_split(out, st.lanes["prolog"][0::2].contiguous(),
-                           task_vec(batch.plen), task_vec(batch.tlen))
-    return [x.cpu().numpy() for x in res]
+    return hirschberg_split(out, st.lanes["prolog"][0::2].contiguous(),
+                            task_vec(batch.plen), task_vec(batch.tlen))
+
+
+def _hsplit_fused(batch, dev, family: str):
+    """`_hsplit_launch`, its four per-task vectors read back as numpy."""
+    return [x.cpu().numpy() for x in _hsplit_launch(batch, dev, family)]
 
 
 def hirschberg_level_splits_device(pats, txts, cos, mids, mids_r,
@@ -204,10 +242,12 @@ def hirschberg_level_splits_device(pats, txts, cos, mids, mids_r,
     ABORT lanes recomputed by the carry-scan pass, or the carry-scan
     pass), as its `banded_score_results` does before its batched split.
     Returns per task (pll, score_l, score_r), or None where the split is
-    infeasible. The counterpart of the JAX package's function of the same
-    name with `_level_splits`, without their venue, mesh and warm-up
-    branches."""
+    infeasible. Under a mesh each bucket's tasks are dealt over its
+    devices (`parallel.mesh.run_level_splits_sharded`). The counterpart of
+    the JAX package's function of the same name with `_level_splits`,
+    without their venue and warm-up branches."""
     dev = resolve_device(device)
+    mesh = active_mesh(dev)
     n = len(pats)
     by_key: dict = {}
     for i in range(n):
@@ -231,7 +271,12 @@ def hirschberg_level_splits_device(pats, txts, cos, mids, mids_r,
         # on the card: only four numbers a task come back
         memreport.record("Hirschberg.LevelPlanes", batch.EBB * batch.B * 16)
         family = score_family(2 * len(idxs), ebb_p2) if deep else "fill"
-        pll, sl, sr, ok = _hsplit_fused(batch, dev, family)
+        if mesh is None:
+            pll, sl, sr, ok = _hsplit_fused(batch, dev, family)
+        else:
+            from quicked_tpu_torch.parallel.mesh import (
+                run_level_splits_sharded)
+            pll, sl, sr, ok = run_level_splits_sharded(batch, mesh, family)
         for j, i in enumerate(idxs):
             results[i] = ((int(pll[j]), int(sl[j]), int(sr[j]))
                           if ok[j] else None)

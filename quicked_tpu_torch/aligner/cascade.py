@@ -13,7 +13,9 @@ runs through the port's kernels (run_quicked, quicked.c:163-306):
   stage 4: Hirschberg under the proven bound           (quicked.c:290)
 
 The JAX package's one-call host C lane and its routing model are not
-carried over: every pair takes the staged device lane.
+carried over: every pair takes the staged device lane. Under a device mesh
+(`aligner.batch.ACTIVE_MESH`) the windowed bounds and the banded kernels
+run sharded over its devices; the windowed full mode runs on its first.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import dataclasses
 
 import numpy as np
 
-from quicked_tpu_torch.aligner.batch import _next_pow2, banded_align_batch
+from quicked_tpu_torch.aligner.batch import (_next_pow2, active_mesh,
+                                              banded_align_batch)
 from quicked_tpu_torch.cigar import Cigar
 from quicked_tpu_torch.device import resolve_device
 from quicked_tpu_torch.ops.windowed_cuda import (prepare_windowed_batch,
@@ -44,8 +47,10 @@ class CascadeResult:
 def windowed_score_batch(patterns, texts, hew_threshold: int,
                          window_size: int, overlap_size: int,
                          device="cuda"):
-    """Bucketed windowed score bound. Returns (score, hew) int64 arrays."""
+    """Bucketed windowed score bound. Returns (score, hew) int64 arrays.
+    Under a mesh each bucket's lanes are sharded over its devices."""
     dev = resolve_device(device)
+    mesh = active_mesh(dev)
     n = len(patterns)
     scores = np.zeros(n, dtype=np.int64)
     hews = np.zeros(n, dtype=np.int64)
@@ -58,8 +63,13 @@ def windowed_score_batch(patterns, texts, hew_threshold: int,
         batch = prepare_windowed_batch(
             [patterns[i] for i in idxs], [texts[i] for i in idxs],
             window_size=window_size)
-        sc, hw = run_windowed_score(batch, hew_threshold, window_size,
-                                    overlap_size, device=dev)
+        if mesh is None:
+            sc, hw = run_windowed_score(batch, hew_threshold, window_size,
+                                        overlap_size, device=dev)
+        else:
+            from quicked_tpu_torch.parallel.mesh import run_windowed_sharded
+            sc, hw = run_windowed_sharded(batch, hew_threshold, window_size,
+                                          overlap_size, mesh)
         scores[idxs] = sc
         hews[idxs] = hw
     return scores, hews
@@ -70,8 +80,12 @@ def windowed_full_batch(patterns, texts, window_size: int,
     """Bucketed full-CIGAR windowed alignment; returns op strings in input
     order. The counterpart of quicked_tpu/aligner/cascade.py
     `windowed_full_batch` without its host C branch: every pair goes to
-    the card's kernel."""
+    the card's kernel. Like it, it does not shard: under a mesh it runs on
+    the mesh's first device."""
     dev = resolve_device(device)
+    mesh = active_mesh(dev)
+    if mesh is not None:
+        dev = mesh.devices[0]
     out: list = [None] * len(patterns)
     cols = W * window_size
     by_key: dict = {}

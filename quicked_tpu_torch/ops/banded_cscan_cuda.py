@@ -27,7 +27,6 @@ import math
 import torch
 
 from quicked_tpu_torch._build import I, P, Kernel
-from quicked_tpu_torch.device import stream_ptr
 from quicked_tpu_torch.ops.banded_cuda import (LANE_FIELDS, StagedBanded,
                                                advance_block, launch_outputs,
                                                maintain)
@@ -159,11 +158,11 @@ def _launch_cscan(st: StagedBanded) -> dict:
     geo = cscan_launch(st.EBB)
     out = launch_outputs(st)
     ptr = torch.Tensor.data_ptr
-    CSCAN.launch(ptr(st.peq), ptr(st.lm), ptr(st.text_pm),
+    CSCAN.launch(st.peq.device, ptr(st.peq), ptr(st.lm), ptr(st.text_pm),
                  ptr(st.init_scores), *[ptr(st.lanes[k]) for k in LANE_FIELDS],
                  ptr(out["scores_by_k"]), ptr(out["pv"]), ptr(out["mv"]),
                  ptr(out["first"]), ptr(out["last"]), st.B, st.EBB, st.NB,
-                 geo.S, geo.threads, stream_ptr(st.peq.device))
+                 geo.S, geo.threads)
     return out
 
 

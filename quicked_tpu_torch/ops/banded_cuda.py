@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from quicked_tpu_torch._build import I, P, Kernel
-from quicked_tpu_torch.device import check_cuda, resolve_device, stream_ptr
+from quicked_tpu_torch.device import check_cuda, resolve_device
 from quicked_tpu_torch.ops.batch_prep import BandedBatch
 
 W = 64
@@ -260,14 +260,15 @@ def _launch_fill(st: StagedBanded, work=None) -> dict:
         if work.dtype != torch.int64 or work.shape != (st.B,):
             raise ValueError("work must be a (B,) int64 tensor")
     ptr = torch.Tensor.data_ptr
-    FILL.launch(int(st.full), ptr(st.peq), ptr(st.lm), ptr(st.text),
-                ptr(st.init_scores), *[ptr(st.lanes[k]) for k in LANE_FIELDS],
+    FILL.launch(st.peq.device, int(st.full), ptr(st.peq), ptr(st.lm),
+                ptr(st.text), ptr(st.init_scores),
+                *[ptr(st.lanes[k]) for k in LANE_FIELDS],
                 ptr(out["scores_by_k"]), ptr(out["pv"]), ptr(out["mv"]),
                 ptr(out["first"]), ptr(out["last"]),
                 ptr(out["mat_pv"]) if st.full else None,
                 ptr(out["mat_mv"]) if st.full else None,
                 ptr(work) if work is not None else None,
-                st.B, st.EBB, st.NB, stream_ptr(st.peq.device))
+                st.B, st.EBB, st.NB)
     return out
 
 

@@ -29,7 +29,6 @@ import math
 import torch
 
 from quicked_tpu_torch._build import I, P, Kernel
-from quicked_tpu_torch.device import stream_ptr
 from quicked_tpu_torch.ops.banded_cscan_cuda import cscan_staged
 from quicked_tpu_torch.ops.banded_cuda import (LANE_FIELDS, StagedBanded,
                                                advance_block, launch_outputs,
@@ -329,13 +328,12 @@ def _launch_sysband(st: StagedBanded) -> tuple[dict, torch.Tensor]:
     out = launch_outputs(st, abort)
     geo = sysband_launch(st.EBB)
     ptr = torch.Tensor.data_ptr
-    SYSBAND.launch(ptr(st.peq), ptr(st.lm), ptr(st.text_pm),
+    SYSBAND.launch(st.peq.device, ptr(st.peq), ptr(st.lm), ptr(st.text_pm),
                    *[ptr(st.lanes[k]) for k in LANE_FIELDS],
                    ptr(out["scores_by_k"]), ptr(out["pv"]), ptr(out["mv"]),
                    ptr(out["first"]), ptr(out["last"]), ptr(abort), st.B,
                    st.EBB, st.NB, geo.NS, geo.ring, geo.rows_per_thread,
-                   WORDS_CODE[geo.words], geo.text_ring,
-                   stream_ptr(st.peq.device))
+                   WORDS_CODE[geo.words], geo.text_ring)
     return out, abort != 0
 
 

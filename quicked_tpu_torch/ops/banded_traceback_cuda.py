@@ -20,7 +20,7 @@ import torch
 
 from quicked_tpu_torch import native
 from quicked_tpu_torch._build import I, P, Kernel
-from quicked_tpu_torch.device import check_cuda, stream_ptr
+from quicked_tpu_torch.device import check_cuda
 
 W = 64
 
@@ -136,8 +136,8 @@ def _launch_traceback(mat_pv, mat_mv, praw, traw, plen, tlen, prolog):
     praw_t, traw_t = praw.t().contiguous(), traw.t().contiguous()
     args = (mat_pv, mat_mv, praw_t, traw_t, plen, tlen, prolog, runs, opcs,
             v_fin, h_fin)
-    TRACEBACK.launch(*[x.data_ptr() for x in args], B, T, EBB,
-                     praw.shape[0], stream_ptr(dev))
+    TRACEBACK.launch(dev, *[x.data_ptr() for x in args], B, T, EBB,
+                     praw.shape[0])
     return runs, opcs, v_fin, h_fin
 
 

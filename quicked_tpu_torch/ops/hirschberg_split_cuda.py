@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from quicked_tpu_torch._build import I, P, Kernel
-from quicked_tpu_torch.device import check_cuda, stream_ptr
+from quicked_tpu_torch.device import check_cuda
 
 W = 64
 MASKED = 1 << 30
@@ -154,9 +154,9 @@ def _launch_hsplit(out: dict, prolog, plen, tlen):
     check_cuda(*args, *res)
     wpt, tpc = hsplit_launch(
         n, EBB, torch.cuda.get_device_properties(dev).multi_processor_count)
-    HSPLIT.launch(*[a.data_ptr() for a in args],
+    HSPLIT.launch(dev, *[a.data_ptr() for a in args],
                   *[r.data_ptr() for r in res], n, EBB,
-                  out["scores_by_k"].shape[0], wpt, tpc, stream_ptr(dev))
+                  out["scores_by_k"].shape[0], wpt, tpc)
     return tuple(res)
 
 

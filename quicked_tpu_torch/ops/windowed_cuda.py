@@ -23,7 +23,7 @@ import torch
 
 from quicked_tpu_torch import dna
 from quicked_tpu_torch._build import I, P, Kernel, load
-from quicked_tpu_torch.device import check_cuda, resolve_device, stream_ptr
+from quicked_tpu_torch.device import check_cuda, resolve_device
 from quicked_tpu_torch.ops.banded_cuda import advance_block, fuse_u64
 from quicked_tpu_torch.ops.banded_traceback_cuda import (
     bit_at, highest_zero_at_or_below)
@@ -396,7 +396,8 @@ def max_shared_bytes(device_index: int) -> int:
     out = ctypes.c_int()
     fn = load().qtt_windowed_max_shared
     fn.argtypes, fn.restype = [I, ctypes.POINTER(ctypes.c_int)], I
-    err = fn(device_index, ctypes.byref(out))
+    with torch.cuda.device(device_index):   # the kernel's attributes there
+        err = fn(device_index, ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"qtt_windowed_max_shared: CUDA error {err}")
     return out.value
@@ -447,10 +448,10 @@ def _launch_windowed(st: StagedWindowed, WS: int, OVL: int,
     score = torch.empty((B,), dtype=torch.int32, device=st.peq.device)
     hew = torch.empty_like(score)
     WINDOWED.launch(
-        *(x.data_ptr() for x in bufs),
+        st.peq.device, *(x.data_ptr() for x in bufs),
         None if scratch is None else scratch.data_ptr(), score.data_ptr(),
         hew.data_ptr(), B, KP, T, P_, WS, OVL, hew_cells, geo.span,
-        geo.shared_bytes, stream_ptr(st.peq.device))
+        geo.shared_bytes)
     return score.long(), hew.long()
 
 
@@ -464,10 +465,10 @@ def _launch_windowed_full(st: StagedWindowed, WS: int, OVL: int):
     pos_v = torch.empty((B,), dtype=torch.int32, device=dev)
     pos_h = torch.empty_like(pos_v)
     WINDOWED_FULL.launch(
-        *(x.data_ptr() for x in bufs),
+        dev, *(x.data_ptr() for x in bufs),
         None if scratch is None else scratch.data_ptr(), rec_run.data_ptr(),
         rec_op.data_ptr(), pos_v.data_ptr(), pos_h.data_ptr(), B, KP, T, P_,
-        WS, OVL, geo.span, geo.shared_bytes, stream_ptr(dev))
+        WS, OVL, geo.span, geo.shared_bytes)
     return rec_run, rec_op, pos_v, pos_h
 
 

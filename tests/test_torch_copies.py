@@ -372,12 +372,79 @@ def check_profiler():
             assert out.getvalue() == jout.getvalue()
 
 
+def check_shard_lanes():
+    """parallel.mesh.shard_lanes: the padded batch (lane count, every
+    plane and lane vector with its pad values) for lane counts that do
+    and do not divide the shards, score and full batches."""
+    from quicked_tpu.parallel import mesh as jax_mesh
+    from quicked_tpu_torch.parallel import mesh
+
+    pairs = _pairs(10, 180, seed=25)
+    cos = [max(len(p), len(t)) * 30 // 100 for p, t in pairs]
+    fields = ("peq_lo", "peq_hi", "lm_lo", "lm_hi", "text", "init_scores",
+              "cutoff", "prolog", "nbr", "finish_v", "tfinish", "first0",
+              "last0", "plen", "tlen")
+    for full in (False, True):
+        for n_shards in (1, 3, 5, 8):
+            args = ([p for p, _ in pairs], [t for _, t in pairs], cos)
+            got = mesh.shard_lanes(batch_prep.prepare_banded_batch(
+                *args, full=full), n_shards)
+            want = jax_mesh.shard_lanes(jax_prep.prepare_banded_batch(
+                *args, full=full), n_shards)
+            assert (got.B, got.EBB, got.NB, got.K) == \
+                (want.B, want.EBB, want.NB, want.K)
+            for f in fields:
+                np.testing.assert_array_equal(getattr(got, f),
+                                              getattr(want, f), err_msg=f)
+
+
+def check_distributed_merge():
+    """parallel.distributed's shard barrier (`_wait_for_shards`, done and
+    timed out) and merges (`_merge_chunk_runs`, `_merge_shards` keyed and
+    not) on the same shard files: equal output bytes and errors."""
+    import shutil
+
+    from quicked_tpu.parallel import distributed as jax_dist
+    from quicked_tpu_torch.parallel import distributed as dist
+
+    shards = {  # interleaved chunk runs of 5 chunks over 2 processes
+        "chunks": ["#0\n1\t2M\n2\t3M\n#2\n#4\n5\t1X\n",
+                   "#1\n3\t4M\n#3\n4\t1M1I\n"],
+        "keyed": ["0\t1\t2M\n2\t3\t4M\n3\t4\t1M1I\n",
+                  "1\t2\t3M\n4\t5\t1X\n"],
+        "range": ["1\t2M\n2\t3M\n", "3\t4M\n"],
+    }
+    for kind, texts in shards.items():
+        outs = []
+        for mod in (dist, jax_dist):
+            with tempfile.TemporaryDirectory() as td:
+                out = os.path.join(td, "out.tsv")
+                for i, text in enumerate(texts):
+                    with open(f"{out}.shard{i:05d}", "w") as f:
+                        f.write(text)
+                    with open(f"{out}.shard{i:05d}.done", "w") as f:
+                        f.write("nonce")
+                mod._wait_for_shards(out, 2, "nonce", timeout_s=5)
+                with pytest.raises(TimeoutError) as err:
+                    mod._wait_for_shards(out, 3, "nonce", timeout_s=0)
+                if kind == "chunks":
+                    mod._merge_chunk_runs(out, 2, 5)
+                else:
+                    mod._merge_shards(out, 2, keyed=kind == "keyed")
+                with open(out, "rb") as f:
+                    outs.append((f.read(), str(err.value),
+                                 sorted(os.listdir(td))))
+                shutil.rmtree(td, ignore_errors=True)
+        assert outs[0] == outs[1], kind
+        assert outs[0][2] == ["out.tsv"], kind
+
+
 CASES = {f.__name__[len("check_"):]: f for f in (
     check_generate, check_prepare_banded_batch, check_band_geometry,
     check_hirschberg_split_fast, check_cigar, check_align_one_np,
     check_native, check_native_windowed, check_native_windowed_full,
     check_expand_window_records, check_seqio, check_edit_dp,
-    check_profiler)}
+    check_profiler, check_shard_lanes, check_distributed_merge)}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

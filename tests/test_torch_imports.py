@@ -30,7 +30,7 @@ def test_torch_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "'quicked_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 33, names\n"
+        "assert len(names) >= 37, names\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'quicked_tpu', 'tests'))\n"
         "assert not bad, bad\n"

@@ -115,7 +115,28 @@ Run from the repository root. It builds the port's CUDA kernels from
            version on its first and last lanes of a host copy;
   phase 4  aligns the phase-3 and the long-read pairs again under
            `torch.profiler` and prints the device time of each kernel and
-           copy and the card's busy share of the wall.
+           copy and the card's busy share of the wall;
+  phase 9  the venue router on its default route: the probes (readback
+           MB/s, dispatch latency) and the six kernel rates calibrated
+           afresh on this host (host C score pass and full alignment, the
+           fill, the full fill and traceback, systolic, carry-scan), with
+           the calibration's seconds and the fill's rate against its lane
+           count; the phase-3 and long-read pairs again, each pair's
+           status, score and CIGAR equal to the host C cascade, their
+           venues and walls beside phases 3 and 5's pinned walls; a mixed
+           batch across the host C lane's length ceiling; `align_benchmark
+           -a quicked -t 2` and `--force-scalar`, lines equal to phase 7's,
+           with the host lanes' threads and vector passes inside each run;
+           the three cascade rates (host C bases/s per core, the pinned
+           card lane's bases/s, its staged bytes per base); the host
+           calibrations repeated three times; and, for the 10 kbp run's
+           largest full-fill chunk and the long-read run's first, the
+           router's estimate of each venue beside its measured wall.
+
+Phases 2 to 8, the recorded runs and phase 4 run with the card's venue
+pinned (QUICKED_TPU_PIN_CARD=1, the router's one switch), so that every
+kernel launches as it does without a router; each of those phases prints
+the venues its runs took, and none may be a host C lane.
 
 The line before the last is a JSON object with one entry per kernel,
 with its bound: the larger of the bytes its function must move over
@@ -1519,7 +1540,7 @@ def phase3(gen, args, torch):
           f"chunks: B={st.B} EBB={st.EBB} NB={st.NB}: kernel {ms:.3f} ms "
           f"(bound {b_ms:.3f} ms, {b_by})")
     return pairs, launches, dict(fill_10kbp_chunk=dict(
-        ms=ms, bound_ms=b_ms, bound_by=b_by)), wall, want, res
+        ms=ms, bound_ms=b_ms, bound_by=b_by)), wall, want, res, b
 
 
 def host_cascade(pairs, params):
@@ -1565,7 +1586,7 @@ def phase5(gen, pairs, torch):
     then BANDED score-only over 16 pairs x 30 kbp (the carry-scan pass)
     against the host C banded kernel."""
     from quicked_tpu_torch import native
-    from quicked_tpu_torch.native import run_banded_native
+    from quicked_tpu_torch.ops.banded_native import run_banded_native
     from quicked_tpu_torch.ops.batch_prep import (extract_final_scores,
                                             prepare_banded_batch)
     from quicked_tpu_torch.params import QuickedAlgo, QuickedParams
@@ -1630,7 +1651,7 @@ def phase5(gen, pairs, torch):
           "BANDED score run differs from the host C banded kernel")
     print(f"[phase 5] oracle: host C banded kernel, {len(bpairs)} scores "
           f"equal")
-    return launches, blaunches, res, wall
+    return launches, blaunches, res, wall, want
 
 
 def phase6(pairs, torch, pool):
@@ -1729,6 +1750,7 @@ def cli_oracle(algo, only_score, pairs):
 
     from quicked_tpu_torch import dna, native
     from quicked_tpu_torch.cigar import Cigar
+    from quicked_tpu_torch.ops.banded_native import run_banded_native
     from quicked_tpu_torch.ops.batch_prep import (extract_final_scores,
                                                   prepare_banded_batch)
     from quicked_tpu_torch.params import HIRSCHBERG_BUFFER_SIZE
@@ -1738,7 +1760,7 @@ def cli_oracle(algo, only_score, pairs):
             [p for p, _ in pairs], [t for _, t in pairs],
             [max(len(p), len(t)) * 15 // 100 for p, t in pairs], full=False)
         scores = extract_final_scores(
-            b, native.run_banded_native(b)["scores_by_k"])
+            b, run_banded_native(b)["scores_by_k"])
         return [tsv_line(s, None) for s in scores]
 
     def line(pair):
@@ -2002,6 +2024,335 @@ def phase8(runs, quicked_lines, smi, torch):
           f"{time.perf_counter() - t0:.1f} s with the process start")
 
 
+HOST_VENUES = ("host_c", "full_host_c", "cascade_native")
+MIXED_LONG = 30_000     # past the host C lane's ceiling at bandwidth 15
+
+
+def pin_card_venue():
+    """Pin every batch to the card with the router's one switch
+    (`batch.PIN_CARD_ENV`), in this process and the processes it starts:
+    nothing is routed, so every kernel launches as without a router."""
+    from quicked_tpu_torch.aligner import batch as qb
+
+    os.environ[qb.PIN_CARD_ENV] = "1"
+
+
+def unpin(cache_dir):
+    """The default route, with every probe and rate resolved afresh into
+    the empty probe cache `cache_dir`."""
+    from quicked_tpu_torch.aligner import batch as qb
+
+    os.environ.pop(qb.PIN_CARD_ENV, None)
+    os.environ["QUICKED_TPU_CACHE"] = cache_dir
+    for name in ("_RATES", "_LINK_MBPS", "_DISPATCH_S"):
+        getattr(qb, name).clear()
+
+
+class Venues:
+    """The router's venue counts taken in a block (`venue_snapshot`
+    differences); `pinned` fails the block if one is a host C lane."""
+
+    def __init__(self, tag, pinned=True):
+        self.tag, self.pinned = tag, pinned
+
+    def __enter__(self):
+        from quicked_tpu_torch.aligner import batch as qb
+
+        self.before = qb.venue_snapshot()
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        from quicked_tpu_torch.aligner import batch as qb
+
+        after = qb.venue_snapshot()
+        self.diff = {k: v - self.before.get(k, 0) for k, v in after.items()
+                     if v != self.before.get(k, 0)}
+        if exc_type is None:
+            print(f"[{self.tag}] venues " + json.dumps(self.diff))
+            if self.pinned:
+                host = [k for k in self.diff if k in HOST_VENUES]
+                check(not host, f"{self.tag}: the pinned card venue ran "
+                      f"{host}")
+        return False
+
+
+class Transfers:
+    """Counts the copies between host and card made by Tensor.to, .cuda
+    and .cpu while active: bytes each way and copies."""
+
+    NAMES = ("to", "cuda", "cpu")
+
+    def __enter__(self):
+        import torch
+
+        self.h2d = self.d2h = self.copies = 0
+        self.saved = {n: torch.Tensor.__dict__.get(n) for n in self.NAMES}
+
+        def wrap(real):
+            def counted(t, *a, **kw):
+                out = real(t, *a, **kw)
+                if out is not t and out.device.type != t.device.type:
+                    nbytes = t.numel() * t.element_size()
+                    if t.device.type == "cpu":
+                        self.h2d += nbytes
+                    else:
+                        self.d2h += nbytes
+                    self.copies += 1
+                return out
+            return counted
+
+        for n in self.NAMES:
+            setattr(torch.Tensor, n, wrap(getattr(torch.Tensor, n)))
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        for n, fn in self.saved.items():
+            if fn is None:
+                delattr(torch.Tensor, n)
+            else:
+                setattr(torch.Tensor, n, fn)
+        return False
+
+
+def same_as_oracle(tag, res, want):
+    """Every status (WIP), score and CIGAR of `res` equal to the host C
+    cascade's `want`."""
+    wip = 1    # run_quicked returns QUICKED_WIP on success (quicked.c:305)
+    check(all(int(s) == wip for s in res.status), f"{tag}: a status is "
+          f"not WIP")
+    bad = [i for i, (sc, cig) in enumerate(want)
+           if int(res.score[i]) != sc or res.cigar[i] != cig]
+    check(not bad, f"{tag}: pairs {bad[:5]} differ from the host C cascade")
+
+
+def fill_rate_by_lanes(torch):
+    """The fill's block advances/s on the calibration geometry at 1/4 to 4
+    times `_fill_full_lanes()` pairs: the occupancy term's test."""
+    from quicked_tpu_torch.aligner import batch as qb
+    from quicked_tpu_torch.ops import banded_cuda as bc
+
+    full, length = qb._cal_geom("fill")
+    big = qb._cal_batch(4 * full, length)
+    rates = {}
+    for n in (full // 4, full // 2, full, 2 * full, 4 * full):
+        b = qb.prepare_banded_batch(big.enc_patterns[:n], big.enc_texts[:n],
+                                    [int(c) for c in big.cutoff[:n]],
+                                    full=False)
+        st = bc.stage_banded(b, "cuda")
+        ms = cuda_ms(lambda: bc.fill_staged(st), 3)
+        rates[n] = qb._deep_band_advances(b) / (ms / 1e3)
+    return rates
+
+
+def phase9(gen, runs, chunks, quicked_lines, smi, torch):
+    """The venue router on its default route, with its probes and rates
+    measured afresh on this host: see the module docstring. `runs` holds
+    (tag, pairs, the host C cascade's results, the pinned wall) of the
+    10 kbp and long-read slices; `chunks` (tag, full-fill chunk) of the
+    10 kbp run's largest and the long-read run's first."""
+    import tempfile
+
+    from quicked_tpu_torch import native, seqio
+    from quicked_tpu_torch.aligner import batch as qb
+    from quicked_tpu_torch.aligner import cascade as qc
+    from quicked_tpu_torch.api import BatchAligner
+    from quicked_tpu_torch.ops.banded_native import run_banded_full_native
+    from quicked_tpu_torch.params import QuickedParams
+    from quicked_tpu_torch.utils.profiler import PhaseTimers
+
+    dev = torch.device("cuda")
+    params = QuickedParams()
+    with tempfile.TemporaryDirectory() as cache:
+        unpin(cache)
+        t0 = time.perf_counter()
+        qb.router_ready(dev)
+        cal_s = time.perf_counter() - t0
+        with open(qb._probe_cache_path()) as f:
+            stored = json.load(f)
+        rates = {f: dict(rate=qb._kernel_rate(f),
+                         calibrated=f"adv_rate_{f}" in stored)
+                 for f in qb.FAMILIES}
+        # the host calibrations again: their spread within a call
+        spread = {f: [qb._calibrate_host_rate(f == "host_full")
+                      for _ in range(3)] for f in ("host", "host_full")}
+        print(f"[phase 9] card: {smi}; host: {native.usable_cores()} "
+              f"usable cores")
+        print(f"[phase 9] probes: readback {qb._device_readback_mbps()} "
+              f"MB/s (8 MiB), dispatch {qb._device_dispatch_s() * 1e6} us")
+        print(f"[phase 9] block advances/s (calibrated on first use, "
+              f"{cal_s:.3f} s): " + json.dumps(rates))
+        print("[phase 9] host calibrations repeated in the same call: "
+              + json.dumps(spread))
+        print(f"[phase 9] fill block advances/s by lanes (full set "
+              f"{qb._fill_full_lanes()}): "
+              + json.dumps(fill_rate_by_lanes(torch)))
+        cores = native.usable_cores()
+
+        aligner = BatchAligner(params, device="cuda")
+        walls = {}
+        for tag, pairs, want, first_wall in runs:
+            # in turns: the default route, then the card pinned again
+            # (the pinned run's uploads counted), both held to the host C
+            # cascade
+            timers = PhaseTimers()
+            with Venues(f"phase 9 {tag}", pinned=False) as v:
+                res, wall, launches, _ = run_counted(
+                    lambda: aligner.align(pairs, timers=timers), torch)
+            same_as_oracle(f"phase 9 {tag}", res, want)
+            report_run(f"phase 9 {tag}", pairs, wall, launches, timers)
+            pin_card_venue()
+            with Venues(f"phase 9 {tag} pinned"), Transfers() as tr:
+                res, pinned, _, _ = run_counted(
+                    lambda: aligner.align(pairs), torch)
+            unpin(cache)
+            same_as_oracle(f"phase 9 {tag} pinned", res, want)
+            walls[tag] = (wall, pinned, tr.h2d)
+            print(f"[phase 9] {tag}: default route {wall:.3f} s, the card "
+                  f"pinned {pinned:.3f} s right after it (phase "
+                  f"{3 if tag == '10 kbp' else 5}, pinned: {first_wall:.3f}"
+                  f" s); every status, score and CIGAR of both equal to the "
+                  f"host C cascade; venues " + json.dumps(v.diff))
+
+        fast_max = qc._native_fast_max(params.bandwidth)
+        mixed = runs[0][1][:200] + list(gen.generate_pairs(
+            8, MIXED_LONG, error=0.1, seed=SEED + 50))
+        check(max(len(p) for p, _ in mixed[200:]) > fast_max,
+              "phase 9: the mixed batch's long pairs fit the host C lane")
+        (want, over), _ = host_ms(lambda: host_cascade(mixed, params))
+        timers = PhaseTimers()
+        with Venues("phase 9 mixed", pinned=False) as v:
+            res, wall, launches, _ = run_counted(
+                lambda: aligner.align(mixed, timers=timers), torch)
+        same_as_oracle("phase 9 mixed", res, want)
+        check(timers.total.count.samples == 1, "phase 9: the mixed batch "
+              "took more than one total lap")
+        print(f"[phase 9] mixed batch, 200 x 10 kbp and 8 x {MIXED_LONG} bp "
+              f"(host C lane ceiling {fast_max} bp): {wall:.3f} s, every "
+              f"status, score and CIGAR equal to the host C cascade; venues "
+              + json.dumps(v.diff) + " launches " + json.dumps(launches))
+
+        with tempfile.TemporaryDirectory() as td:
+            seq = os.path.join(td, "pairs.seq")
+            seqio.write_seq_pairs(seq, runs[0][1])
+            real_qb, real_fs = native.quicked_batch, native.set_force_scalar
+            for flags in (["-t", "2"], ["--force-scalar"]):
+                threads, calls = set(), []
+
+                def spy_fs(v):
+                    threads.add(native.default_threads())
+                    real_fs(v)
+
+                def spy_qb(*a, **kw):
+                    calls.append(native.default_threads())
+                    return real_qb(*a, **kw)
+
+                native.quicked_batch = spy_qb
+                native.set_force_scalar = spy_fs
+                out = os.path.join(td, "out.tsv")
+                passes = native.simd_pass_count()
+                try:
+                    with Venues(f"phase 9 CLI {flags[0]}",
+                                pinned=False) as v:
+                        _, wall, _ = cli_run(
+                            ["-a", "quicked", "-i", seq, "-o", out,
+                             "--batch-size", "250", *flags], torch)
+                finally:
+                    native.quicked_batch = real_qb
+                    native.set_force_scalar = real_fs
+                    real_fs(False)
+                passes = native.simd_pass_count() - passes
+                got = read_lines(out)
+                check(got == quicked_lines, f"phase 9: align_benchmark "
+                      f"{' '.join(flags)} lines differ from phase 7's")
+                if flags[0] == "-t":
+                    check(threads == {2} and set(calls) <= {2},
+                          f"phase 9: -t 2 ran the host lanes on "
+                          f"{threads | set(calls)} threads")
+                else:
+                    check(passes == 0, f"phase 9: --force-scalar ran "
+                          f"{passes} vector passes")
+                print(f"[phase 9] align_benchmark -a quicked "
+                      f"{' '.join(flags)}: {wall:.3f} s, {len(got)} lines "
+                      f"equal to phase 7's; default_threads() inside the "
+                      f"run {sorted(threads)}; {len(calls)} host C cascade "
+                      f"calls; {passes} vector passes; venues "
+                      + json.dumps(v.diff))
+
+        pairs = runs[0][1]
+        bases = sum(max(len(p), len(t)) for p, t in pairs)
+        kw = dict(bandwidth=params.bandwidth,
+                  window_size=params.window_size,
+                  overlap_size=params.overlap_size,
+                  hew_threshold=params.hew_threshold,
+                  hew_percentage=params.hew_percentage,
+                  budget=16 << 20, rle=True)
+        args = ([p for p, _ in pairs], [t for _, t in pairs])
+        native.quicked_batch(*args, **kw)
+        _, native_ms = host_ms(lambda: native.quicked_batch(*args, **kw))
+        native_rate = bases / (native_ms / 1e3) / cores
+        link = qb._device_readback_mbps() * 1e6
+        disp = qb._device_dispatch_s()
+        _, pinned_wall, staged_h2d = walls["10 kbp"]
+        staged_rate = bases / (pinned_wall - 4 * disp - staged_h2d / link)
+        full_venues = {}
+        for ctag, chunk in chunks:
+            # the router's full-chunk estimates for both venues against
+            # their measured walls: the card's with the card pinned
+            n = len(chunk.enc_patterns)
+            enc_p, enc_t = chunk.enc_patterns, chunk.enc_texts
+            cos = [int(c) for c in chunk.cutoff[:n]]
+            raws = ([e.tobytes() for e in enc_p],
+                    [e.tobytes() for e in enc_t])
+            adv = qb._deep_band_advances(chunk)
+            est_host = adv / qb._host_rate("host_full", n) * 1e3
+            est_card = qb._full_device_est_s(chunk, adv) * 1e3
+            pick = "host" if qb._prefer_host_full(chunk) else "card"
+            run_banded_full_native(enc_p, enc_t, cos, raws=raws)
+            _, full_host = host_ms(lambda: run_banded_full_native(
+                enc_p, enc_t, cos, raws=raws))
+            pin_card_venue()
+            qb.banded_align_batch(enc_p, enc_t, cos, only_score=False,
+                                  device="cuda", raws=raws)
+            _, full_wall, launches, _ = run_counted(
+                lambda: qb.banded_align_batch(
+                    enc_p, enc_t, cos, only_score=False, device="cuda",
+                    raws=raws), torch)
+            unpin(cache)
+            faster = "host" if full_host < full_wall * 1e3 else "card"
+            full_venues[ctag] = dict(
+                pairs=n, est_host_ms=est_host, est_card_ms=est_card,
+                host_ms=full_host, card_ms=full_wall * 1e3, picks=pick,
+                faster=faster)
+            print(f"[phase 9] full fill of the {ctag} run's chunk ({n} "
+                  f"pairs, {qb._full_link_bytes(chunk)} link bytes "
+                  f"priced): host C estimated {est_host:.1f} ms, measured "
+                  f"{full_host:.1f} ms; the card estimated {est_card:.1f} "
+                  f"ms, measured {full_wall * 1e3:.1f} ms with "
+                  f"{sum(launches.values())} launches; the router picks "
+                  f"the {pick}, the {faster} was faster")
+        print(f"[phase 9] cascade rates on {cores} cores ({smi}): host C "
+              f"{native_rate} bases/s per core ({bases} bases in "
+              f"{native_ms:.1f} ms, warm); pinned card lane "
+              f"{pinned_wall:.3f} s, {staged_h2d} bytes to the card, "
+              f"{staged_h2d / bases} bytes per base, {staged_rate} bases/s "
+              f"once 4 dispatches and the upload are taken off")
+        print("[phase 9] rates " + json.dumps(dict(
+            native_cascade_bases_s_per_core=native_rate,
+            staged_cascade_bases_s=staged_rate,
+            staged_bytes_per_base=staged_h2d / bases,
+            host_adv_per_s_per_core=rates["host"]["rate"] / cores,
+            host_full_adv_per_s_per_core=rates["host_full"]["rate"] / cores,
+            fill_adv_per_s=rates["fill"]["rate"],
+            full_adv_per_s=rates["full"]["rate"],
+            sysband_adv_per_s=rates["sysband"]["rate"],
+            cscan_adv_per_s=rates["cscan"]["rate"],
+            readback_mbps=qb._device_readback_mbps(),
+            dispatch_s=qb._device_dispatch_s(),
+            calibration_s=cal_s, full_chunks=full_venues)))
+
+
 def _device_ms(evt):
     total = getattr(evt, "self_device_time_total", None)
     if total is None:
@@ -2099,46 +2450,62 @@ def main(argv=None) -> int:
               f"{'built or loaded' if have_native else 'unavailable'} in "
               f"{time.perf_counter() - t0:.1f} s")
 
+        pin_card_venue()
+        print("[phase 1] card venue pinned for phases 2-8 and 4: "
+              "QUICKED_TPU_PIN_CARD=1")
         pool = PlainPool(max(1, min(6, (os.cpu_count() or 2) - 2)))
-        p2 = phase2(generate, SEED, torch, pool)
-        p2.update(phase2_deep(generate, torch, pool))
-        p2.update(phase2_stripes(generate, torch, pool))
-        p2.update(phase2_deepband(generate, torch, pool))
-        p2.update(phase2_wide(generate, torch, pool))
-        p2.update(phase2_banded(generate, torch, pool))
-        long_pairs = make_pairs(generate, args.long_pairs, args.long_length,
-                                SEED + 30)
-        levels, chunk = record_levels(long_pairs)
-        p2.update(phase2_fulldepth(levels, torch, pool))
-        p2.update(phase2_levels(levels, chunk, torch, pool))
-        del levels, chunk
-        p2.update(phase2_batches(generate, torch, pool))
-        p2.update(phase2_traceback(generate, torch, pool))
-        t0 = time.perf_counter()
-        pool.drain()
-        print(f"[plain] phase 2's plain versions done "
-              f"{time.perf_counter() - t0:.1f} s after its kernels")
-        pairs, launches, p3, api_wall, want, res = phase3(generate, args,
-                                                          torch)
+        with Venues("phase 2"):
+            p2 = phase2(generate, SEED, torch, pool)
+            p2.update(phase2_deep(generate, torch, pool))
+            p2.update(phase2_stripes(generate, torch, pool))
+            p2.update(phase2_deepband(generate, torch, pool))
+            p2.update(phase2_wide(generate, torch, pool))
+            p2.update(phase2_banded(generate, torch, pool))
+            long_pairs = make_pairs(generate, args.long_pairs,
+                                    args.long_length, SEED + 30)
+            levels, long_chunk = record_levels(long_pairs)
+            p2.update(phase2_fulldepth(levels, torch, pool))
+            p2.update(phase2_levels(levels, long_chunk, torch, pool))
+            del levels
+            p2.update(phase2_batches(generate, torch, pool))
+            p2.update(phase2_traceback(generate, torch, pool))
+            t0 = time.perf_counter()
+            pool.drain()
+            print(f"[plain] phase 2's plain versions done "
+                  f"{time.perf_counter() - t0:.1f} s after its kernels")
+        with Venues("phase 3"):
+            (pairs, launches, p3, api_wall, want, res,
+             full_chunk) = phase3(generate, args, torch)
         p2.update(p3)
-        long_launches, banded_launches, long_res, long_wall = phase5(
-            generate, long_pairs, torch)
-        wfull_launches, p6 = phase6(pairs, torch, pool)
+        with Venues("phase 5"):
+            (long_launches, banded_launches, long_res, long_wall,
+             long_want) = phase5(generate, long_pairs, torch)
+        with Venues("phase 6"):
+            wfull_launches, p6 = phase6(pairs, torch, pool)
         p2.update(p6)
-        quicked_lines = phase7(pairs, want, api_wall, torch)
-        phase8([("10 kbp", pairs, res, api_wall, launches),
-                ("long-read", long_pairs, long_res, long_wall,
-                 long_launches)], quicked_lines, card, torch)
+        with Venues("phase 7"):
+            quicked_lines = phase7(pairs, want, api_wall, torch)
+        with Venues("phase 8"):
+            phase8([("10 kbp", pairs, res, api_wall, launches),
+                    ("long-read", long_pairs, long_res, long_wall,
+                     long_launches)], quicked_lines, card, torch)
         del res, long_res
-        p2.update(check_recorded("10kbp", record_run(pairs, True), torch,
-                                 pool, plain=True))
-        rec = record_run(long_pairs, False)
-        p2.update(check_recorded("long", rec, torch, pool))
-        p2.update(check_deep("long", rec, torch, pool, stage3=True))
+        with Venues("recorded"):
+            p2.update(check_recorded("10kbp", record_run(pairs, True),
+                                     torch, pool, plain=True))
+            rec = record_run(long_pairs, False)
+            p2.update(check_recorded("long", rec, torch, pool))
+            p2.update(check_deep("long", rec, torch, pool, stage3=True))
         del rec
         pool.drain()
-        phase4([("10 kbp slice", pairs), ("long-read slice", long_pairs)],
-               torch)
+        with Venues("phase 4"):
+            phase4([("10 kbp slice", pairs),
+                    ("long-read slice", long_pairs)], torch)
+        phase9(generate, [("10 kbp", pairs, want, api_wall),
+                          ("long-read", long_pairs, long_want, long_wall)],
+               [("10 kbp", full_chunk), ("long-read", long_chunk)],
+               quicked_lines, card, torch)
+        del full_chunk, long_chunk
         check("jax" not in sys.modules, "jax was imported")
         print(f"[end] {time.perf_counter() - t_start:.1f} s in all")
     except SmokeFailure as e:

@@ -1,35 +1,60 @@
-"""Batch-first alignment engine on the card.
+"""Batch-first alignment engine: the card's kernels and the host C lanes.
 
 The counterpart of quicked_tpu/aligner/batch.py (`banded_align_batch`,
-`hirschberg_level_splits_device`, `_finish`, `align_batch_full`,
-`bucket_keys`, `_lane_pad`). Pairs are bucketed by
-band/text geometry and every bucket runs through the port's kernels.
-Score batches take the score-kernel family of the JAX package's device
-route (`score_family`, from its batch.py:540-572): the fill for shallow
-bands, the systolic kernel for deep ones, the carry-scan
-kernel for the rest of the deep batches and for tiny ones. Full batches
-take the full fill plus the on-device traceback. A Hirschberg split level
-runs its score pass and the split epilogue on the card, whatever its
-band's depth, and reads back four numbers per task. Under a device mesh
-(`ACTIVE_MESH`, set by `parallel.mesh.use_mesh`) each chunk's lanes and
-each split level's tasks are sharded over the mesh's devices, with the
-kernels the unmeshed run picks. What the JAX package routes by venue
-(host C lanes, rate probes, cold-shape deferral, the QUICKED_TPU_*
-switches) is not carried over: routing is by geometry only.
+`hirschberg_level_splits_device`, `banded_score_results`, `_finish`,
+`align_batch_full`, `bucket_keys`, `_lane_pad`, and the venue router:
+its probes, kernel rates and decisions). Pairs are bucketed by band/text
+geometry. A score batch takes the score-kernel family of the JAX
+package's device route (`score_family`, from its batch.py:540-572): the
+fill for shallow bands, the systolic kernel for deep ones, the carry-scan
+kernel for the rest of the deep batches and for tiny ones. A full batch
+takes the full fill plus the on-device traceback. A Hirschberg split
+level runs its score pass and the split epilogue on the card and reads
+back four numbers per task.
+
+On a card (`device="cuda"`, no mesh) the venue router decides, before
+any launch, whether a batch runs there or on the host C lanes
+(`ops/banded_native.py`): a score batch, split level or full chunk goes
+to the host when its estimated host time (block advances over the
+host's measured rate for as many threads as it has pairs) undercuts the
+card's (dispatch latency + its bytes over the measured link + advances
+over the family's measured rate). Every rate is probed or calibrated on
+the host the process runs on and kept in the port's own probe cache
+(`_probe_cache_path`). Each routed batch records its venue
+(`venue_snapshot`). QUICKED_TPU_PIN_CARD=1 pins every batch to the card.
+With `device="cpu"` nothing is routed: every batch runs the kernels'
+plain PyTorch versions. Under a device mesh
+(`ACTIVE_MESH`, set by `parallel.mesh.use_mesh`) everything stays on the
+card: each chunk's lanes and each split level's tasks are sharded over
+the mesh's devices, with the kernels the unmeshed run picks.
+
+Not carried over: the cold-shape deferral (`_device_with_cold_deferral`,
+which would serve batches from host C while a kernel builds) and the
+plane readback with a host C walk (`QUICKED_TPU_DEVICE_TB=0`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
+import threading
+import time
 
 import numpy as np
 import torch
 
+from quicked_tpu_torch import native
+from quicked_tpu_torch._build import BUILD_DIR
+from quicked_tpu_torch.aligner.hirschberg import _level_splits
 from quicked_tpu_torch.cigar import Cigar
 from quicked_tpu_torch.device import resolve_device
 from quicked_tpu_torch.ops import myers_np
 from quicked_tpu_torch.ops.banded_cscan_cuda import cscan_staged
 from quicked_tpu_torch.ops.banded_cuda import fill_staged, stage_banded
+from quicked_tpu_torch.ops.banded_native import (run_banded_full_native,
+                                                 run_banded_native)
 from quicked_tpu_torch.ops.banded_sysband_cuda import sysband_staged
 from quicked_tpu_torch.ops.banded_traceback_cuda import traceback_ops
 from quicked_tpu_torch.ops.batch_prep import (extract_final_scores,
@@ -144,6 +169,476 @@ def bucket_keys(plens, tlens, cutoffs, full: bool):
     return keys
 
 
+# --- the venue router ----------------------------------------------------
+# Each numeric constant below was measured by chip_smoke.py's phase 9 on
+# the card host "NVIDIA H100 80GB HBM3, 700.00 W"
+# (`nvidia-smi --query-gpu=name,power.limit`); every other figure the
+# router reads is probed or calibrated on the host it runs on.
+
+# Fallback block-advance rates, used only when the probe cache holds no
+# measured rate and first-use calibration declines (`_kernel_rate`): the
+# host C score pass and full alignment per usable core
+# (`_calibrate_host_rate`), and each card family on its calibration batch
+# (`_calibrate_device_rate`; "full" is the fill with its planes and the
+# traceback).
+HOST_ADV_PER_S_PER_CORE = 209552623.54002115
+HOST_FULL_ADV_PER_S_PER_CORE = 86617657.19836313
+FILL_ADV_PER_S = 474432642.0590884
+FULL_ADV_PER_S = 437515480.7458165
+SYSBAND_ADV_PER_S = 4533423036.71788
+CSCAN_ADV_PER_S = 2239341011.5385923
+
+# The short-read cascade model (`prefer_staged_short`), on the 1,000 x 10
+# kbp slice: the host C cascade's bases/s per usable core (warm, every
+# core), the staged card lane's bases/s once its dispatch and link terms
+# are taken off its wall, and the host-to-device bytes per base its
+# staging calls upload.
+NATIVE_CASCADE_BASES_S_PER_CORE = 2539210.8895836943
+STAGED_CASCADE_BASES_S = 5040472.873180071
+STAGED_BYTES_PER_BASE = 27.39676237455448
+
+FAMILIES = ("host", "host_full", "fill", "full", "sysband", "cscan")
+
+# QUICKED_TPU_PIN_CARD=1 pins every batch to the card: nothing is routed,
+# so each entry runs the kernels it runs without a router (processes
+# started from this one inherit it).
+PIN_CARD_ENV = "QUICKED_TPU_PIN_CARD"
+
+_PROBE_TTL_S = 900.0        # link conditions drift with load
+# kernel rates drift only with hardware: they persist for days
+_RATE_TTL_S = 7 * 86400.0
+_PROBE_BYTES = 8 << 20      # the readback probe's copy
+_HOST_CAL_LENGTH = 20_000
+_HOST_CAL_PATIENCE = 10
+_HOST_CAL_MAX_RUNS = 40
+
+_LINK_MBPS: list = []       # device-to-host MB/s, probed once
+_DISPATCH_S: list = []      # seconds of a trivial launch, probed once
+_RATES: dict = {}           # family -> block advances/s, resolved once
+_CACHE_KEY: list = []
+
+# One probe at a time: two concurrent probes would time each other's
+# transfers and cache the contended numbers. Reentrant: calibration holds
+# it while it reads the link and dispatch probes.
+_PROBE_LOCK = threading.RLock()
+
+# Venue observability: routed batches per venue since process start
+# (consumers snapshot and diff).
+VENUE_COUNTS: dict = {}
+_VENUE_LOCK = threading.Lock()
+
+
+def _venue(name: str) -> None:
+    with _VENUE_LOCK:
+        VENUE_COUNTS[name] = VENUE_COUNTS.get(name, 0) + 1
+
+
+def venue_snapshot() -> dict:
+    with _VENUE_LOCK:
+        return dict(VENUE_COUNTS)
+
+
+def routed(dev: torch.device) -> bool:
+    """Whether the venue router decides for an entry running on `dev`:
+    only on a card, never under a mesh (which keeps everything on its
+    devices), and not while QUICKED_TPU_PIN_CARD=1 pins the card. With
+    device="cpu" every batch runs the plain versions."""
+    return (dev.type == "cuda" and ACTIVE_MESH is None
+            and os.environ.get(PIN_CARD_ENV) != "1")
+
+
+def _probe_cache_path() -> str:
+    """The port's own probe cache: under QUICKED_TPU_CACHE (default the
+    build directory beside the package), one file per card name and host
+    CPU, so that no rate of another card or host is ever read (nor the
+    JAX package's `device_probes.json`)."""
+    if not _CACHE_KEY:
+        card = (torch.cuda.get_device_name(torch.cuda.current_device())
+                if torch.cuda.is_available() else "no card")
+        _CACHE_KEY.append(hashlib.sha256(
+            f"{card}|{native._host_cpu()}".encode()).hexdigest()[:16])
+    d = os.environ.get("QUICKED_TPU_CACHE", BUILD_DIR)
+    return os.path.join(d, f"device_probes_torch_{_CACHE_KEY[0]}.json")
+
+
+def _probe_cache_get(key: str, ttl: float | None = None):
+    """Cross-process probe memo, TTL-bounded."""
+    try:
+        with open(_probe_cache_path()) as f:
+            ent = json.load(f).get(key)
+        if ent and time.time() - ent["ts"] <= (ttl if ttl is not None
+                                               else _PROBE_TTL_S):
+            return float(ent["value"])
+    except (OSError, ValueError, KeyError):
+        pass
+    return None
+
+
+def _probe_cache_put(key: str, value: float) -> None:
+    path = _probe_cache_path()
+    try:
+        try:
+            with open(path) as f:
+                data = json.load(f)
+        except (OSError, ValueError):
+            data = {}
+        data[key] = {"value": value, "ts": time.time()}
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(data, f)
+        os.replace(tmp, path)
+    except OSError:
+        pass
+
+
+def _readback_seconds(nbytes: int) -> float:
+    """Seconds of one device-to-host copy of `nbytes` from the card."""
+    buf = torch.zeros(nbytes, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buf.cpu()
+    return time.perf_counter() - t0
+
+
+def _device_readback_mbps() -> float:
+    """Device-to-host bandwidth (MB/s), probed once: the fastest of three
+    8 MiB copies (one copy alone read 1,629-13,192 MB/s across calls on
+    the H100 host, chip_smoke phase 9)."""
+    with _PROBE_LOCK:
+        if not _LINK_MBPS:
+            cached = _probe_cache_get("readback_mbps")
+            if cached is not None:
+                _LINK_MBPS.append(cached)
+                return cached
+            dt = max(min(_readback_seconds(_PROBE_BYTES)
+                         for _ in range(3)), 1e-9)
+            _LINK_MBPS.append(_PROBE_BYTES / dt / 1e6)
+            # a sub-1 MB/s reading is a transient outage (another
+            # process's transfers), not an operating point: this process
+            # honors it, the cache does not keep it
+            if _LINK_MBPS[0] >= 1.0:
+                _probe_cache_put("readback_mbps", _LINK_MBPS[0])
+    return _LINK_MBPS[0]
+
+
+def _device_dispatch_s() -> float:
+    """Seconds of one launch of a trivial CUDA op ending in
+    torch.cuda.synchronize(), probed once on its second launch (the first
+    pays the op's own setup)."""
+    with _PROBE_LOCK:
+        if not _DISPATCH_S:
+            x = torch.arange(256, device="cuda")
+            (x * 2).sum()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (x * 2).sum()
+            torch.cuda.synchronize()
+            _DISPATCH_S.append(max(time.perf_counter() - t0, 1e-6))
+    return _DISPATCH_S[0]
+
+
+def _fill_full_lanes() -> int:
+    """Pairs at which the fill reaches its calibrated rate. The fill runs
+    a warp per pair, and each of an SM's four warp schedulers issues for
+    one warp a cycle: up to 4 x SMs pairs, a pass takes the time of one
+    pair's column chain whatever the count, so its rate grows with the
+    pairs. The fill's calibration times exactly that many (528 on the
+    H100's 132 SMs, the figure taken without a card)."""
+    sms = (torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+        if torch.cuda.is_available() else 132)
+    return 4 * sms
+
+
+def _cal_geom(family: str) -> tuple[int, int]:
+    """(pairs, length) of a card family's calibration batch, at bandwidth
+    15, sized so that `score_family` routes it to the family itself: a
+    full set of fill lanes at 5 kbp (EBB 13); 32 pairs of 100 kbp for the
+    systolic pass (EBB 236) and 32 of 40 kbp for the carry-scan pass (EBB
+    96, a small deep batch), the long-read stage-3 batches' scale; for
+    the full fill and traceback, 128 pairs of 10 kbp, the 10 kbp slice's
+    chunk under FULL_FILL_BYTES_BUDGET."""
+    return {"fill": (_fill_full_lanes(), 5_000), "full": (128, 10_000),
+            "sysband": (32, 100_000), "cscan": (32, 40_000)}[family]
+
+
+def _occupancy(family: str, n_live: int) -> float:
+    """The share of a score family's calibrated rate a batch of n_live
+    pairs reaches. Each score kernel runs a pair on a warp (the fill) or
+    on a CTA or warps of its own (the deep-band kernels), so below the
+    card's width a pass takes one pair's chain whatever the count, and
+    its rate grows with the pairs: linearly up to the calibration batch's
+    pairs (`_cal_geom`), flat past them, where nothing was measured. The
+    full fill and traceback is priced flat: its wall follows its columns'
+    staging, raw frames and record expansion, not its pairs (phase 9 of
+    chip_smoke measures both chunks it prices)."""
+    if family == "full":
+        return 1.0
+    n_cal = _cal_geom(family)[0]
+    return min(max(n_live, 1), n_cal) / n_cal
+
+
+def _rate_fallback(family: str) -> float:
+    if family in ("host", "host_full"):
+        return ((HOST_ADV_PER_S_PER_CORE if family == "host"
+                 else HOST_FULL_ADV_PER_S_PER_CORE) * native.usable_cores())
+    return {"fill": FILL_ADV_PER_S, "full": FULL_ADV_PER_S,
+            "sysband": SYSBAND_ADV_PER_S, "cscan": CSCAN_ADV_PER_S}[family]
+
+
+def _cal_pairs(n: int, length: int):
+    """(patterns, texts, cutoffs) of a calibration batch, bandwidth 15:
+    eight pairs made from a seed and repeated to n (the kernels' time
+    does not depend on which pairs repeat; making them is Python-slow)."""
+    from quicked_tpu_torch import generate
+
+    made = list(generate.generate_pairs(min(n, 8), length, error=0.1,
+                                        seed=5))
+    pairs = [made[i % len(made)] for i in range(n)]
+    return ([p for p, _ in pairs], [t for _, t in pairs],
+            [max(len(p), len(t)) * 15 // 100 for p, t in pairs])
+
+
+def _cal_batch(n: int, length: int, full: bool = False):
+    return prepare_banded_batch(*_cal_pairs(n, length), full=full)
+
+
+def _calibrate_host_rate(full: bool = False):
+    """The whole host's rate of the host C score pass (`full`: the full
+    alignment, fill and traceback) on every usable core with force_scalar
+    off: the estimate prices the default host path, and a figure taken
+    under a thread cap or in scalar mode would mis-route later processes
+    for days. The batch holds four pairs a usable core, so that every
+    thread has work, of _HOST_CAL_LENGTH bp, long enough that the call's
+    fixed costs (thread spawn, the result scatter) stay small beside its
+    kernels. The rate is the advances over the fastest of the runs. The
+    first calls at this size can run several times slower than later
+    ones, for tens of calls, while fresh memory is first touched, so the
+    runs go on until the fastest has not improved by 5% for
+    _HOST_CAL_PATIENCE runs, or _HOST_CAL_MAX_RUNS runs: the cached rate
+    is the warm host's."""
+    if not native.available():
+        return None
+    pats, txts, cos = _cal_pairs(4 * native.usable_cores(),
+                                 _HOST_CAL_LENGTH)
+    b = prepare_banded_batch(pats, txts, cos, full=False)
+    if full:
+        def run():
+            run_banded_full_native(pats, txts, cos)
+    else:
+        def run():
+            run_banded_native(b)
+
+    prev = native.get_force_scalar()
+    native.set_force_scalar(False)
+    try:
+        with native.thread_budget(native.usable_cores()):
+            best, still = float("inf"), 0
+            for _ in range(_HOST_CAL_MAX_RUNS):
+                t = _timed(run)
+                if t < 0.95 * best:
+                    still = 0
+                else:
+                    still += 1
+                best = min(best, t)
+                if still >= _HOST_CAL_PATIENCE:
+                    break
+    finally:
+        native.set_force_scalar(prev)
+    return _deep_band_advances(b) / max(best, 1e-9)
+
+
+def _timed(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def _full_link_bytes(batch) -> int:
+    """Bytes a full chunk moves over the link on the card: the staged
+    score inputs and the traceback's raw character frames (a byte a
+    pattern and a text column) up, its column records (an int32 run and
+    an int8 op a text column) back."""
+    cols = batch.NB * W
+    return batch.upload_bytes() + batch.B * cols * (2 + 5)
+
+
+def _calibrate_device_rate(family: str):
+    """Time one real batch through the family's CUDA kernels as an entry
+    runs it (the batch prepared and its planes built on the host, staged,
+    launched, the outputs read back; for "full" the fill with its planes
+    and the traceback to op strings) and invert the router's own estimate
+    (dispatch + link bytes + advances/rate = wall) for the rate, so the
+    rate is consistent with how it is consumed. Declines (None) when
+    dispatch and link take more than 70% of the timed run: the kernel
+    term would be noise."""
+    dev = resolve_device("cuda")
+    pats, txts, cos = _cal_pairs(*_cal_geom(family))
+    full = family == "full"
+    # sized here; each run prepares its own, as an entry's chunk does
+    batch = prepare_banded_batch(pats, txts, cos, full=full)
+    if full:
+        praws = [p.encode() for p in pats]
+        traws = [t.encode() for t in txts]
+        nbytes = _full_link_bytes(batch)
+
+        def run():
+            b = prepare_banded_batch(pats, txts, cos, full=True)
+            out = fill_staged(stage_banded(b, dev))
+            traceback_ops(out["mat_pv"], out["mat_mv"], praws, traws,
+                          b.plen, b.tlen, b.prolog, b.B)
+    else:
+        assert score_family(batch.B, _next_pow2(batch.EBB)) == family
+        nbytes = batch.upload_bytes()
+
+        def run():
+            b = prepare_banded_batch(pats, txts, cos, full=False)
+            score_staged(stage_banded(b, dev), family)["first"].cpu()
+
+    run()                                   # build, warm
+    best = min(_timed(run) for _ in range(2))
+    overhead = _device_dispatch_s() + nbytes / (_device_readback_mbps()
+                                                * 1e6)
+    kern = best - overhead
+    if kern < 0.3 * best:
+        return None
+    return _deep_band_advances(batch) / kern
+
+
+def _kernel_rate(family: str) -> float:
+    """Block advances/s of a family (FAMILIES). Resolution order: process
+    memo, probe cache (TTL 7 days), first-use calibration (persisted), the
+    measured fallback constants. A calibration that raises is not
+    caught."""
+    if family in _RATES:
+        return _RATES[family]
+    with _PROBE_LOCK:
+        if family in _RATES:
+            return _RATES[family]
+        cached = _probe_cache_get(f"adv_rate_{family}", ttl=_RATE_TTL_S)
+        if cached is not None and cached > 0:
+            _RATES[family] = cached
+            return cached
+        rate = (_calibrate_host_rate(full=family == "host_full")
+                if family.startswith("host")
+                else _calibrate_device_rate(family))
+        if rate is not None and rate > 0:
+            _probe_cache_put(f"adv_rate_{family}", float(rate))
+        else:
+            rate = _rate_fallback(family)
+        _RATES[family] = float(rate)
+    return _RATES[family]
+
+
+def router_ready(dev: torch.device) -> None:
+    """Resolve the probes and every kernel rate the router reads, so that
+    no calibration runs inside a timed stage. Entries call it before
+    their timers start; a no-op where nothing is routed."""
+    if routed(dev) and native.available():
+        _device_readback_mbps()
+        _device_dispatch_s()
+        for family in FAMILIES:
+            _kernel_rate(family)
+
+
+def _live(batch) -> int:
+    return (len(batch.enc_patterns) if batch.enc_patterns is not None
+            else batch.B)
+
+
+def _host_rate(family: str, n_pairs: int) -> float:
+    """The host C rate of `family` ("host" or "host_full") at this
+    thread's thread count (`native.default_threads()`, capped by a
+    `thread_budget`). The score pass splits a pair over several threads
+    when it has fewer pairs than threads; the full alignment runs a pair
+    a thread (`run_banded_full_native`), so at most n_pairs of its
+    threads work."""
+    cores = native.usable_cores()
+    threads = min(native.default_threads(), cores)
+    if family == "host_full":
+        threads = min(threads, max(n_pairs, 1))
+    return _kernel_rate(family) * threads / cores
+
+
+def _deep_band_advances(batch) -> float:
+    """Upper-bound block-advance count of a score batch."""
+    n = _live(batch)
+    ebb = batch.cutoff[:n].astype(np.int64) // W + 1
+    return float(np.sum(batch.tfinish[:n].astype(np.int64) * ebb))
+
+
+def _score_device_est_s(batch, adv: float, kernel_adv_per_s: float) -> float:
+    """Estimated wall of a score pass on the card: dispatch latency + the
+    staged inputs over the measured link + kernel time."""
+    link = _device_readback_mbps() * 1e6
+    return (_device_dispatch_s() + batch.upload_bytes() / link
+            + adv / kernel_adv_per_s)
+
+
+def _full_device_est_s(batch, adv: float) -> float:
+    """Estimated wall of a full chunk on the card: dispatch latency + its
+    link bytes (`_full_link_bytes`) over the measured link + the full
+    fill and traceback at the calibrated rate."""
+    link = _device_readback_mbps() * 1e6
+    return (_device_dispatch_s() + _full_link_bytes(batch) / link
+            + adv / (_kernel_rate("full") * _occupancy("full", _live(batch))))
+
+
+def _prefer_host_deep(batch, sysband: bool) -> bool:
+    """Deep-band venue: True when the estimated host C time undercuts the
+    card's (dispatch + staging + the systolic or carry-scan kernel at its
+    rate for the batch's pairs)."""
+    family = "sysband" if sysband else "cscan"
+    adv = _deep_band_advances(batch)
+    est_dev = _score_device_est_s(
+        batch, adv, _kernel_rate(family) * _occupancy(family, _live(batch)))
+    return adv / _host_rate("host", _live(batch)) < est_dev
+
+
+def _prefer_host_shallow(batch, n_live: int) -> bool:
+    """Shallow-band venue (the fill): its rate scales with the pairs up
+    to `_fill_full_lanes()` (a warp each), so a Hirschberg level over a
+    handful of pairs can lose to the host C kernel."""
+    adv = _deep_band_advances(batch)
+    est_dev = _score_device_est_s(
+        batch, adv, _kernel_rate("fill") * _occupancy("fill", n_live))
+    return adv / _host_rate("host", _live(batch)) < est_dev
+
+
+def _prefer_host(batch, family: str) -> bool:
+    """The score-pass venue of a batch `score_family` sends to `family`:
+    True for the host C kernel."""
+    if family == "fill":
+        return _prefer_host_shallow(batch, batch.B)
+    return _prefer_host_deep(batch, family == "sysband")
+
+
+def _prefer_host_full(batch) -> bool:
+    """Full-chunk venue: True when the host C fill and traceback's
+    estimate (`run_banded_full_native`, a pair a thread) undercuts the
+    card's (`_full_device_est_s`). Both sides are calibrated on this
+    host, and the advance count is the same on both, so its definition
+    cancels."""
+    adv = _deep_band_advances(batch)
+    return (adv / _host_rate("host_full", _live(batch))
+            < _full_device_est_s(batch, adv))
+
+
+def prefer_staged_short(total_bases: int) -> bool:
+    """The short-read cascade's venue: True when the staged card lane's
+    estimate (dispatches, its staged bytes over the measured link, its
+    bases at STAGED_CASCADE_BASES_S) beats the one-call host C cascade's
+    for a batch of `total_bases`."""
+    link = _device_readback_mbps() * 1e6
+    native_s = total_bases / (NATIVE_CASCADE_BASES_S_PER_CORE
+                              * native.usable_cores())
+    staged_s = (4 * _device_dispatch_s()
+                + total_bases * STAGED_BYTES_PER_BASE / max(link, 1.0)
+                + total_bases / STAGED_CASCADE_BASES_S)
+    return staged_s < native_s
+
+
 def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
                        device="cuda", raws=None):
     """BANDED over a batch (run_banded, quicked.c:58-89, per pair).
@@ -152,11 +647,21 @@ def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
     `raws`: optional (praws, traws) raw byte strings for pre-encoded
     inputs; the traceback's M test compares raw characters.
 
+    On a card the router picks each chunk's venue before any launch,
+    whichever estimate wins: a full chunk runs the card's fill and
+    traceback or the host C fill and traceback (`_prefer_host_full`); a
+    score chunk runs its `score_family` kernel or the host C score pass
+    (`_prefer_host`). The port's chunks have no lane floor, so no
+    chunk's padding can exceed FULL_FILL_BYTES_BUDGET and no chunk needs
+    the JAX package's too-deep host lane (batch.py:755-770); a pair whose
+    planes alone exceed the budget runs as a chunk of one.
+
     Under a mesh each chunk's lanes are sharded (`parallel.mesh.
     banded_shards`), the score kernel decided on the chunk's whole lane
     count, and every shard's fill is launched before any is read back."""
     dev = resolve_device(device)
     mesh = active_mesh(dev)
+    route = routed(dev) and native.available()
     n = len(patterns)
     scores = np.zeros(n, dtype=np.int64)
     ops_out: list = [None] * n
@@ -179,11 +684,30 @@ def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
                 [patterns[i] for i in sub], [texts[i] for i in sub],
                 [cutoffs[i] for i in sub], full=not only_score)
             family = score_family(len(sub), ebb_p2) if only_score else "fill"
+            venue = family if only_score else "full_fill_tb"
+            if route and only_score and _prefer_host(batch, family):
+                _venue("host_c")
+                scores[sub] = extract_final_scores(
+                    batch, run_banded_native(batch)["scores_by_k"])
+                continue
+            if route and not only_score and _prefer_host_full(batch):
+                _venue("full_host_c")
+                sc, ops = run_banded_full_native(
+                    [patterns[i] for i in sub], [texts[i] for i in sub],
+                    [cutoffs[i] for i in sub],
+                    raws=([raws[0][i] for i in sub],
+                          [raws[1][i] for i in sub]) if raws else None)
+                scores[sub] = sc
+                for j, i in enumerate(sub):
+                    ops_out[i] = ops[j]
+                continue
             if mesh is None:
+                _venue(venue)
                 parts = [(0, batch, score_staged(stage_banded(batch, dev),
                                                  family))]
             else:
                 from quicked_tpu_torch.parallel.mesh import banded_shards
+                _venue("mesh_" + venue)
                 parts = banded_shards(batch, mesh, family)
             # (lane offset, host batch, device outputs) per shard; lanes
             # past the chunk's pairs are the shards' padding
@@ -209,6 +733,65 @@ def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
     return scores, ops_out
 
 
+@dataclasses.dataclass
+class BandedScoreState:
+    """Per-pair band state of a host C score pass, in the numpy form
+    myers_np.hirschberg_split_fast consumes."""
+
+    score: int
+    pv64: np.ndarray        # (ebb,) uint64 band words
+    mv64: np.ndarray
+    first: int
+    last: int
+    scores_k: np.ndarray    # (K+1,) shifted-row scores
+    prolog: int
+    geometry: myers_np.BandGeometry
+
+
+def banded_score_results(patterns, texts, cutoffs, text_finish=None):
+    """Score-only banded runs through the host C score pass, returning the
+    per-pair band state a host split level consumes (`_level_splits`).
+    `text_finish` stops each lane at its midpoint while the band is sized
+    for the full text (bpm_hirschberg.c:85-100). Buckets and padding are
+    the JAX package's, so the states equal its own."""
+    n = len(patterns)
+    if text_finish is None:
+        text_finish = [len(t) for t in texts]
+    results: list = [None] * n
+    by_key: dict = {}
+    geos: list = [None] * n
+    for i in range(n):
+        geos[i] = myers_np.band_geometry(len(patterns[i]), len(texts[i]),
+                                         int(cutoffs[i]))
+        by_key.setdefault(score_key(geos[i], text_finish[i]), []).append(i)
+
+    for (nb_p2, ebb_p2), idxs in by_key.items():
+        batch = prepare_banded_batch(
+            [patterns[i] for i in idxs], [texts[i] for i in idxs],
+            [cutoffs[i] for i in idxs], full=False,
+            text_finish=[text_finish[i] for i in idxs],
+            pad_to_b=_lane_pad(len(idxs), ebb_p2), min_nb=nb_p2,
+            min_ebb=ebb_p2)
+        out = run_banded_native(batch)
+        final_scores = extract_final_scores(batch, out["scores_by_k"])
+        # one 64-bit reassembly + transpose for the batch; per-pair rows
+        # are then contiguous views
+        pv64 = np.ascontiguousarray(
+            (out["pv_lo"].astype(np.uint64)
+             | (out["pv_hi"].astype(np.uint64) << np.uint64(32))).T)
+        mv64 = np.ascontiguousarray(
+            (out["mv_lo"].astype(np.uint64)
+             | (out["mv_hi"].astype(np.uint64) << np.uint64(32))).T)
+        sck = np.ascontiguousarray(out["scores_by_k"].T)
+        for j, i in enumerate(idxs):
+            results[i] = BandedScoreState(
+                score=int(final_scores[j]), pv64=pv64[j], mv64=mv64[j],
+                first=int(out["first"][j]), last=int(out["last"][j]),
+                scores_k=sck[j], prolog=int(batch.prolog[j]),
+                geometry=geos[i])
+    return results
+
+
 def _hsplit_launch(batch, dev, family: str):
     """The score pass of `family` and the split epilogue over an
     interleaved forward/reverse level batch, launched on `dev`; returns
@@ -231,9 +814,9 @@ def _hsplit_fused(batch, dev, family: str):
 
 def hirschberg_level_splits_device(pats, txts, cos, mids, mids_r,
                                    device="cuda"):
-    """A Hirschberg split level on the card: the forward and reverse half
-    passes of each task as lanes 2j and 2j+1 of one score batch per
-    bucket, then the midpoint epilogue, reading back four numbers per task
+    """A Hirschberg split level: the forward and reverse half passes of
+    each task as lanes 2j and 2j+1 of one score batch per bucket, then the
+    midpoint epilogue on the card, reading back four numbers per task
     instead of band planes (bpm_hirschberg.c:149-200's consumption, after
     the kernel). The kernels are the JAX package's: where every bucket's
     band fits the fill (PALLAS_MAX_EBB), the fill, as its fused level
@@ -241,13 +824,17 @@ def hirschberg_level_splits_device(pats, txts, cos, mids, mids_r,
     `score_family` routes it to (the fill, the systolic pass with its
     ABORT lanes recomputed by the carry-scan pass, or the carry-scan
     pass), as its `banded_score_results` does before its batched split.
-    Returns per task (pll, score_l, score_r), or None where the split is
-    infeasible. Under a mesh each bucket's tasks are dealt over its
-    devices (`parallel.mesh.run_level_splits_sharded`). The counterpart of
-    the JAX package's function of the same name with `_level_splits`,
-    without their venue and warm-up branches."""
+    On a card the router may send a bucket to the host instead, when the
+    host C estimate of its half passes wins (the JAX package's batch.py:
+    1013-1018): its tasks then take the host C score pass
+    (`banded_score_results`) and the host midpoint search
+    (`hirschberg._level_splits`), bit-exact with the card's. Returns per
+    task (pll, score_l, score_r), or None where the split is infeasible.
+    Under a mesh each bucket's tasks are dealt over its devices
+    (`parallel.mesh.run_level_splits_sharded`)."""
     dev = resolve_device(device)
     mesh = active_mesh(dev)
+    route = routed(dev) and native.available()
     n = len(pats)
     by_key: dict = {}
     for i in range(n):
@@ -267,15 +854,32 @@ def hirschberg_level_splits_device(pats, txts, cos, mids, mids_r,
             fins_il += [int(mids[i]), int(mids_r[i])]
         batch = prepare_banded_batch(pats_il, txts_il, cos_il, full=False,
                                      text_finish=fins_il)
-        # the level's band words (pv and mv, 8 bytes each), which stay
-        # on the card: only four numbers a task come back
+        # the level's band words (pv and mv, 8 bytes each); on the card
+        # they stay there and only four numbers a task come back
         memreport.record("Hirschberg.LevelPlanes", batch.EBB * batch.B * 16)
         family = score_family(2 * len(idxs), ebb_p2) if deep else "fill"
+        if route and _prefer_host(batch, family):
+            _venue("host_c")
+            t_pats = [pats[i] for i in idxs]
+            t_txts = [txts[i] for i in idxs]
+            t_cos = [int(cos[i]) for i in idxs]
+            both = banded_score_results(
+                t_pats + [p[::-1] for p in t_pats],
+                t_txts + [t[::-1] for t in t_txts], t_cos + t_cos,
+                text_finish=[int(mids[i]) for i in idxs]
+                + [int(mids_r[i]) for i in idxs])
+            splits = _level_splits(t_pats, t_txts, both[:len(idxs)],
+                                   both[len(idxs):])
+            for j, i in enumerate(idxs):
+                results[i] = splits[j]
+            continue
         if mesh is None:
+            _venue("hsplit_device")
             pll, sl, sr, ok = _hsplit_fused(batch, dev, family)
         else:
             from quicked_tpu_torch.parallel.mesh import (
                 run_level_splits_sharded)
+            _venue("mesh_hsplit_device")
             pll, sl, sr, ok = run_level_splits_sharded(batch, mesh, family)
         for j, i in enumerate(idxs):
             results[i] = ((int(pll[j]), int(sl[j]), int(sr[j]))
@@ -303,6 +907,7 @@ def align_batch_full(pairs, params: QuickedParams | None = None,
     per-stage times."""
     params = params or QuickedParams()
     dev = resolve_device(device)
+    native.set_force_scalar(params.force_scalar)
     n = len(pairs)
     statuses: list = [QuickedStatus.QUICKED_OK] * n
     scores = np.full(n, -1, dtype=np.int64)
@@ -320,6 +925,8 @@ def align_batch_full(pairs, params: QuickedParams | None = None,
     txts = [pairs[i][1] for i in live]
 
     algo = params.algo
+    if params.use_kernels and algo != QuickedAlgo.WINDOWED:
+        router_ready(dev)
     if not params.use_kernels:
         # the exact numpy semantic model, per pair
         from quicked_tpu_torch.api import _align_one_np

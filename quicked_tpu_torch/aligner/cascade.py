@@ -12,10 +12,22 @@ runs through the port's kernels (run_quicked, quicked.c:163-306):
   stage 3: banded score with the telescoping retry     (quicked.c:237-276)
   stage 4: Hirschberg under the proven bound           (quicked.c:290)
 
-The JAX package's one-call host C lane and its routing model are not
-carried over: every pair takes the staged device lane. Under a device mesh
-(`aligner.batch.ACTIVE_MESH`) the windowed bounds and the banded kernels
-run sharded over its devices; the windowed full mode runs on its first.
+On a card, `quicked_cascade_batch` routes as the JAX package does
+(cascade.py:300-440): the pairs no longer than `_native_fast_max` take the
+one-call host C cascade (`native.quicked_batch`, all four stages in C,
+threads inside) unless the staged card lane's estimate beats it
+(`batch.prefer_staged_short`, from the probes and the three cascade
+rates measured on the card host); longer pairs take the staged lane; a
+host C pair whose stage-4 band is over the Hirschberg budget comes back
+with its proven bound and finishes in the port's `hirschberg_batch` on
+the card. With device="cpu", or QUICKED_TPU_PIN_CARD=1, every pair takes
+the staged lane (on the kernels' plain versions for the CPU). Under a device mesh (`aligner.batch.ACTIVE_MESH`) every pair
+takes the staged lane, the windowed bounds and the banded kernels sharded
+over its devices; the windowed full mode runs on its first.
+
+Not carried over: the JAX package's CPU-backend windowed buckets
+(`_windowed_device`, `WINDOWED_CPU_MIN_LEN`), which run on XLA's CPU
+backend; the port has no counterpart of it.
 """
 
 from __future__ import annotations
@@ -24,6 +36,8 @@ import dataclasses
 
 import numpy as np
 
+from quicked_tpu_torch import native
+from quicked_tpu_torch.aligner import batch as ab
 from quicked_tpu_torch.aligner.batch import (_next_pow2, active_mesh,
                                               banded_align_batch)
 from quicked_tpu_torch.cigar import Cigar
@@ -103,20 +117,140 @@ def windowed_full_batch(patterns, texts, window_size: int,
     return out
 
 
+_FAST_MAX_CACHE: dict = {}
+
+
+def _native_fast_max(bandwidth: int) -> int:
+    """Largest pair length whose worst-case stage-4 banded footprint
+    (ebb * text_len * 8 * 2, bpm_hirschberg.c:63-65) fits the 16 MB
+    Hirschberg base-case budget: ~20 kbp at the default 15% band. Pairs
+    up to it take the one-call host C cascade on a card host when its
+    estimate wins; past it the host lane would defer stage 4 to the
+    batched Hirschberg driver anyway. Memoized on (bandwidth, budget)."""
+    from quicked_tpu_torch import params as qp
+
+    key = (bandwidth, qp.HIRSCHBERG_BUFFER_SIZE)
+    got = _FAST_MAX_CACHE.get(key)
+    if got is not None:
+        return got
+
+    def fits(L: int) -> bool:
+        ebb = (L * bandwidth // 100) // W + 2
+        return ebb * L * 16 <= qp.HIRSCHBERG_BUFFER_SIZE
+
+    lo, hi = W, 1 << 22
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if fits(mid):
+            lo = mid
+        else:
+            hi = mid - 1
+    _FAST_MAX_CACHE[key] = lo
+    return lo
+
+
+def _native_lane(pairs, params: QuickedParams, dev) -> list:
+    """Indices of the pairs the host C cascade takes: none unless the
+    router decides for `dev` (a card, no mesh, not pinned); else those no
+    longer than `_native_fast_max`, unless the staged lane's estimate wins
+    (`batch.prefer_staged_short`)."""
+    if not (ab.routed(dev) and native.available()
+            and params.window_size <= 16):
+        return []
+    n = len(pairs)
+    lens = np.fromiter(map(len, (s for pair in pairs for s in pair)),
+                       np.int64, 2 * n)
+    maxlens = np.maximum(lens[0::2], lens[1::2])
+    sel = maxlens <= _native_fast_max(params.bandwidth)
+    fast = np.nonzero(sel)[0].tolist()
+    if fast and ab.prefer_staged_short(int(maxlens[sel].sum())):
+        ab._venue("cascade_staged_shortreads")
+        return []
+    return fast
+
+
 def quicked_cascade_batch(pairs, params: QuickedParams | None = None,
                           timers=None, device="cuda") -> CascadeResult:
     """Run the QuickEd cascade on a batch of (pattern, text) pairs.
     `timers` (utils.profiler.PhaseTimers) takes the per-stage times, as
-    the reference's instrumentation does (quicked.c:184-294)."""
+    the reference's instrumentation does (quicked.c:184-294): one
+    `total` lap per call, whichever lanes the batch takes, and the router
+    resolves its probes and rates before it."""
     params = params or QuickedParams()
     dev = resolve_device(device)
     if timers is None:
         timers = PhaseTimers()
+    native.set_force_scalar(params.force_scalar)
+    ab.router_ready(dev)
+    fast = _native_lane(pairs, params, dev)
     timers.total.start()
     try:
+        if fast:
+            return _cascade_with_native_lane(pairs, params, timers, fast,
+                                             dev)
         return _cascade_staged(pairs, params, timers, dev)
     finally:
         timers.total.stop()
+
+
+def _cascade_with_native_lane(pairs, params: QuickedParams, timers, fast,
+                              device="cuda") -> CascadeResult:
+    """The pairs `fast` through the host C cascade in one call; those over
+    the Hirschberg budget finish in `hirschberg_batch` under their proven
+    bound (booked under `timers.align`), the rest of the batch through
+    the staged lane."""
+    from quicked_tpu_torch.aligner.hirschberg import hirschberg_batch
+    from quicked_tpu_torch.params import HIRSCHBERG_BUFFER_SIZE
+
+    n = len(pairs)
+    ab._venue("cascade_native")
+    all_fast = len(fast) == n
+    st, sc, rles = native.quicked_batch(
+        [pairs[i][0] for i in fast], [pairs[i][1] for i in fast],
+        bandwidth=params.bandwidth, window_size=params.window_size,
+        overlap_size=params.overlap_size,
+        hew_threshold=params.hew_threshold,
+        hew_percentage=params.hew_percentage,
+        budget=HIRSCHBERG_BUFFER_SIZE, rle=True)
+    if all_fast and not np.any(st):
+        # every pair aligned in C: return the packed results as they are
+        # (run_quicked returns QUICKED_WIP on success, quicked.c:305)
+        return CascadeResult(status=[QuickedStatus.QUICKED_WIP] * n,
+                             score=sc, cigar=[x or None for x in rles])
+    statuses: list = [None] * n
+    scores = np.full(n, -1, dtype=np.int64)
+    cigars: list = [None] * n
+    deferred = []       # (input index, proven bound)
+    for j, i in enumerate(fast):
+        if st[j] == 0:
+            statuses[i] = QuickedStatus.QUICKED_WIP
+            scores[i] = sc[j]
+            cigars[i] = rles[j] or None
+        else:
+            deferred.append((i, int(sc[j])))
+    if deferred:
+        timers.align.start()
+        res = hirschberg_batch([pairs[i][1] for i, _ in deferred],
+                               [pairs[i][0] for i, _ in deferred],
+                               [b for _, b in deferred], device=device)
+        for (i, _), (_, h_ops) in zip(deferred, res):
+            # run_quicked ignores the Hirschberg status and returns WIP
+            # (quicked.c:290-305)
+            statuses[i] = QuickedStatus.QUICKED_WIP
+            c = Cigar(operations=h_ops or "")
+            scores[i] = c.score_edit()
+            cigars[i] = c.sprint(True) if h_ops else None
+        timers.align.stop()
+    fast_set = set(fast)
+    slow = [i for i in range(n) if i not in fast_set]
+    if slow:
+        sub = _cascade_staged([pairs[i] for i in slow], params, timers,
+                              device)
+        for j, i in enumerate(slow):
+            statuses[i] = sub.status[j]
+            scores[i] = sub.score[j]
+            cigars[i] = sub.cigar[j]
+    return CascadeResult(status=statuses, score=scores, cigar=cigars)
 
 
 def proven_bounds(pats, txts, params: QuickedParams, timers,

@@ -4,11 +4,13 @@ The counterpart of quicked_tpu/aligner/hirschberg.py (`hirschberg_batch`,
 `_level_splits`), with the same worklist: all pairs' subproblems run level
 by level. Base cases (band footprint <= the 16 MB budget,
 bpm_hirschberg.c:63-65) run through the full fill and the on-device
-traceback. Every split level runs on the card
-(`batch.hirschberg_level_splits_device`: the forward and reverse half
-passes, through the fill or, for a deep band, the deep-band kernels, and
-the split epilogue; four numbers per task read back). Leaf CIGARs are
-assembled left to right by their recursion path.
+traceback, or the host C fill and traceback where the router sends them.
+Every split level runs in `batch.hirschberg_level_splits_device`: on the
+card, the forward and reverse half passes, through the fill or, for a
+deep band, the deep-band kernels, and the split epilogue, four numbers
+per task read back; or, for a bucket the router sends to the host, the
+host C half passes and `_level_splits`. Leaf CIGARs are assembled left to
+right by their recursion path.
 
 Failure semantics follow the reference's shared right-to-left buffer
 (bpm_hirschberg.c:210-243): on QUICKED_FAIL_NON_CONVERGENCE only the
@@ -32,6 +34,20 @@ def _enc_raw(s):
         e = np.asarray(s, np.uint8)
         return e, e.tobytes()
     return dna.encode(s), s.encode("ascii", "replace")
+
+
+def _level_splits(pats, txts, fwd, rev):
+    """Per-task midpoints of a split level whose half passes ran on the
+    host (`batch.banded_score_results`): (pll, score_l, score_r) or None
+    per task, by the spec path (myers_np.hirschberg_split_fast), which the
+    card's split epilogue equals bit for bit. The JAX package runs its
+    levels of 64 tasks or more through a batched XLA op on the CPU; the
+    port has no XLA, so every level takes the spec path."""
+    return [myers_np.hirschberg_split_fast(
+        f.pv64, f.mv64, f.first, f.last, f.scores_k,
+        r.pv64, r.mv64, r.first, r.last, r.scores_k,
+        f.prolog, len(p), len(t))
+        for p, t, f, r in zip(pats, txts, fwd, rev)]
 
 
 def hirschberg_batch(texts, patterns, cutoffs, device="cuda"):

@@ -4,8 +4,9 @@ The counterpart of quicked_tpu/api.py: `BatchAligner` / `align_batch`
 are the batch-first surface, `QuickedAligner` the reference-style
 single-pair object (quicked.h:56-67, bindings/cpp/quicked.hpp:47-69),
 which goes through the batch path. Every entry takes `device`: "cuda"
-(the default) runs the CUDA kernels and raises without a card; "cpu"
-runs their plain PyTorch versions.
+(the default) runs the CUDA kernels, or the host C lanes where the venue
+router sends a batch (aligner/batch.py), and raises without a card;
+"cpu" runs the kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations

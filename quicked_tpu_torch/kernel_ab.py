@@ -10,7 +10,9 @@ Run from the repository root on a machine with a CUDA card. OTHER is the
 root of the other checkout, for example the parent commit unpacked with
 `git archive <commit> | tar -x -C build/parent`. chip_smoke.py's two
 slices (N pairs x L bp and the long-read pairs, made from the same seeds)
-are aligned once by this checkout while chip_smoke's `Recorder` keeps
+are aligned once by this checkout, with the card's venue pinned as in
+chip_smoke's phases 2-8 (`pin_card_venue`), while chip_smoke's `Recorder`
+keeps
 every windowed batch, one traceback chunk (the 10 kbp run's largest, the
 long-read run's first), each run's largest full-fill `BandedBatch`,
 every host `BandedBatch` the route sends to a deep-band kernel (the long-read run's stage 3 and split level 1 on the
@@ -215,6 +217,9 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip() or "nvidia-smi: no output")
+    # record the card's kernels: on its default route the venue router
+    # sends the 10 kbp slice to the host C cascade
+    cs.pin_card_venue()
     recorded = [
         ("10kbp", cs.record_run(cs.make_pairs(
             generate, args.pairs, args.length, cs.SEED + 10), True)),

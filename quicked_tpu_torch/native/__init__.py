@@ -3,10 +3,12 @@
 The port's copy of quicked_tpu/native/__init__.py, carrying only the
 entries the port and `chip_smoke.py` use: the record expansion of the
 on-device traceback (`expand_colruns`), the CIGAR helpers of `cigar.Cigar`
-(`cigar_score_edit`, `cigar_sprint`, `cigar_check`), and the host C
-cascade that `chip_smoke.py` holds the port to (`quicked_batch`,
-`hirschberg`, `banded_score_batch` through `run_banded_native`, and its
-windowed bound `windowed_score`).
+(`cigar_score_edit`, `cigar_sprint`, `cigar_check`), the host C lanes the
+venue router sends batches to (`quicked_batch`, `banded_score_batch`,
+`banded_align_full`), the host C cascade's Hirschberg and windowed modes
+(`hirschberg`, `windowed_score`, `windowed_full`), and the
+process-wide controls of the host lanes (`thread_budget`,
+`default_threads`, `set_force_scalar`, `simd_pass_count`).
 
 `src/quicked_host.c` is a copy of quicked_tpu/native/src/quicked_host.c.
 The shared library is built at first use with the system C compiler into
@@ -73,12 +75,47 @@ def library_path() -> str:
                         f"libquicked_host_{h.hexdigest()[:16]}.so")
 
 
-def default_threads() -> int:
-    """Threads of a batched native call: every core this process may use."""
+# Per-thread default-thread-count override (see thread_budget): lets a
+# caller bound the host lanes of its native calls without touching the
+# process environment.
+_tls = threading.local()
+
+
+def usable_cores() -> int:
+    """Cores this process may run on (affinity-aware: a process pinned to
+    2 of 64 cores must not size its pools for 64)."""
     try:
         return max(len(os.sched_getaffinity(0)), 1)
     except (AttributeError, OSError):
         return os.cpu_count() or 1
+
+
+def default_threads() -> int:
+    """Threads of a batched native call: the active thread_budget if set,
+    else QUICKED_TPU_CPU_THREADS, else every usable core."""
+    budget = getattr(_tls, "budget", None)
+    if budget is not None:
+        return budget
+    env = os.environ.get("QUICKED_TPU_CPU_THREADS")
+    if env is not None:
+        return int(env)
+    return usable_cores()
+
+
+class thread_budget:
+    """Context manager bounding this thread's native-call thread use."""
+
+    def __init__(self, n: int):
+        self._n = max(int(n), 1)
+
+    def __enter__(self):
+        self._prev = getattr(_tls, "budget", None)
+        _tls.budget = self._n
+        return self
+
+    def __exit__(self, *exc):
+        _tls.budget = self._prev
+        return False
 
 
 def _build(path: str) -> bool:
@@ -160,6 +197,16 @@ def _load():
         lib.qh_expand_colruns_batch.argtypes = [
             _u16p, _i8p, _i32p, _i32p, _i64, _i64,
             ctypes.c_char_p, _i64p, _i64p]
+        lib.qh_banded_align_full.restype = _i64
+        lib.qh_banded_align_full.argtypes = [
+            _u8p, _u8p, _i64, _u8p, _u8p, _i64, _i64,
+            ctypes.c_char_p, _i64p]
+        lib.qh_set_force_scalar.restype = None
+        lib.qh_set_force_scalar.argtypes = [ctypes.c_int]
+        lib.qh_get_force_scalar.restype = ctypes.c_int
+        lib.qh_get_force_scalar.argtypes = []
+        lib.qh_simd_pass_count.restype = _i64
+        lib.qh_simd_pass_count.argtypes = []
         _lib = lib
         return _lib
 
@@ -203,6 +250,47 @@ def expand_colruns(runs_bt: np.ndarray, opcs_bt: np.ndarray,
         *args, flat.ctypes.data_as(ctypes.c_char_p),
         offs.ctypes.data_as(_i64p), lens.ctypes.data_as(_i64p))
     return flat, offs, lens
+
+
+def set_force_scalar(v: bool) -> None:
+    """Runtime SIMD toggle of the host C banded kernels (the reference's
+    force_scalar, bpm_banded.c:1049-1059): the scalar column loop instead
+    of the 4-column vector pipeline. Process-wide; a no-op when the
+    library is unavailable."""
+    lib = _load()
+    if lib is not None:
+        lib.qh_set_force_scalar(1 if v else 0)
+
+
+def get_force_scalar() -> bool:
+    lib = _load()
+    return bool(lib.qh_get_force_scalar()) if lib is not None else False
+
+
+def simd_pass_count() -> int:
+    """Vector 4-column passes run so far in this process: the observable
+    that shows force_scalar switched the kernels' path."""
+    lib = _load()
+    return int(lib.qh_simd_pass_count()) if lib is not None else 0
+
+
+def banded_align_full(pattern_enc: np.ndarray, pattern_raw: bytes,
+                      text_enc: np.ndarray, text_raw: bytes,
+                      cutoff_score: int):
+    """Host-native BandEd full alignment (fill + traceback).
+    Returns (score, ops_str)."""
+    lib = _load()
+    p = np.ascontiguousarray(pattern_enc, dtype=np.uint8)
+    t = np.ascontiguousarray(text_enc, dtype=np.uint8)
+    ops = ctypes.create_string_buffer(len(p) + len(t) + 1)
+    score = ctypes.c_int64()
+    n = lib.qh_banded_align_full(
+        p.ctypes.data_as(_u8p), _u8bytes(pattern_raw), len(p),
+        t.ctypes.data_as(_u8p), _u8bytes(text_raw), len(t),
+        cutoff_score, ops, ctypes.byref(score))
+    if n < 0:
+        raise MemoryError("qh_banded_align_full: allocation failed")
+    return int(score.value), ops.raw[:n].decode("ascii")
 
 
 def cigar_score_edit(ops: str) -> int:
@@ -332,56 +420,6 @@ def windowed_full(pattern_enc: np.ndarray, pattern_raw: bytes,
         t.ctypes.data_as(_u8p), _u8bytes(text_raw), len(t),
         window_size, overlap_size, ops)
     return ops.raw[:n].decode("ascii")
-
-
-def run_banded_native(batch):
-    """The score-only banded pass of a BandedBatch through the C kernel
-    (quicked_tpu/ops/banded_native.py:run_banded_native): ONE native call
-    for the whole batch, then a vectorised scatter into the fill's output
-    layout, as u32 lo/hi planes."""
-    assert not batch.full, "native path is score-only"
-    assert batch.enc_patterns is not None, "batch lacks host sequences"
-    B, EBB, K = batch.B, batch.EBB, batch.K
-    n = len(batch.enc_patterns)
-
-    scores_by_k = np.empty((K + 1, B), dtype=np.int32)
-    # padded lanes / untouched rows: the init formula (k - prolog + 1)*64
-    k_idx = np.arange(K + 1, dtype=np.int64)[:, None]
-    scores_by_k[:] = ((k_idx - batch.prolog[None, :] + 1) * 64)
-    pv_lo = np.full((EBB, B), 0xFFFFFFFF, dtype=np.uint32)
-    pv_hi = np.full((EBB, B), 0xFFFFFFFF, dtype=np.uint32)
-    mv_lo = np.zeros((EBB, B), dtype=np.uint32)
-    mv_hi = np.zeros((EBB, B), dtype=np.uint32)
-    first = batch.first0.astype(np.int32).copy()
-    last = batch.last0.astype(np.int32).copy()
-
-    res = banded_score_batch(
-        batch.enc_patterns, batch.enc_texts,
-        batch.cutoff[:n].astype(np.int64), batch.tfinish[:n],
-        want_state=True)
-    first[:n] = res["first"]
-    last[:n] = res["last"]
-    # per-pair ebb can differ; scatter with a column mask
-    ebb = res["ebb"]
-    rows = np.arange(res["pv"].shape[1], dtype=np.int64)
-    live = rows[None, :] < ebb[:, None]          # (n, ebb_cap)
-    m_rows = min(res["pv"].shape[1], EBB)
-    lv = live[:, :m_rows].T                      # (m_rows, n)
-    pvT = res["pv"][:, :m_rows].T
-    mvT = res["mv"][:, :m_rows].T
-    np.copyto(pv_lo[:m_rows, :n], (pvT & np.uint64(0xFFFFFFFF))
-              .astype(np.uint32), where=lv)
-    np.copyto(pv_hi[:m_rows, :n], (pvT >> np.uint64(32))
-              .astype(np.uint32), where=lv)
-    np.copyto(mv_lo[:m_rows, :n], (mvT & np.uint64(0xFFFFFFFF))
-              .astype(np.uint32), where=lv)
-    np.copyto(mv_hi[:m_rows, :n], (mvT >> np.uint64(32))
-              .astype(np.uint32), where=lv)
-    m = min(res["scores"].shape[1], K + 1)
-    scores_by_k[:m, :n] = res["scores"][:, :m].T
-
-    return dict(scores_by_k=scores_by_k, pv_lo=pv_lo, pv_hi=pv_hi,
-                mv_lo=mv_lo, mv_hi=mv_hi, first=first, last=last)
 
 
 def _pack_pairs_interleaved(patterns, texts) -> bytes:

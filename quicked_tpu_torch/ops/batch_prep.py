@@ -75,7 +75,10 @@ class BandedBatch:
     """Fixed-shape arrays for one kernel invocation (one bucket).
 
     The device planes (PEQ, level masks, text, init scores) build
-    LAZILY on first attribute access via `plane_builder`."""
+    LAZILY on first attribute access via `plane_builder`: score batches
+    that the venue router sends to the host C kernel never touch them and
+    skip the packing. Venue decisions size the upload with the analytic
+    `upload_bytes()`, not the arrays."""
 
     # static shape params
     B: int
@@ -124,6 +127,14 @@ class BandedBatch:
                         object.__setattr__(self, k, v)
                     object.__setattr__(self, "plane_builder", None)
         return object.__getattribute__(self, name)
+
+    def upload_bytes(self, packed_text: bool = True) -> int:
+        """Analytic staged-upload size of a score pass (PEQ lo+hi, level
+        masks lo+hi, text); reading the arrays' .nbytes would trigger the
+        lazy build. packed_text: one byte a character (the port stages
+        every family's text as uint8); False counts 4."""
+        text_b = self.NB * W * self.B * (1 if packed_text else 4)
+        return self.K * self.B * 4 * (5 * 2 + 2) + text_b
 
 
 def prepare_banded_batch(patterns, texts, cutoffs, *, full: bool,

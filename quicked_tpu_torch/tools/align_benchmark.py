@@ -11,8 +11,11 @@ runs the kernels' plain PyTorch versions) takes the place of
 `--platform`; `--device cuda` without a card exits non-zero.
 
 Pairs are streamed in batches (`--batch-size`) through the port's
-batched CUDA kernels, in place of the reference's per-pair loop and
-OpenMP batches (align_benchmark.c:232-306). The `--check
+batched CUDA kernels and, where the venue router sends them on a card
+host, its host C lanes, in place of the reference's per-pair loop and
+OpenMP batches (align_benchmark.c:232-306); `-t` caps the host lanes'
+threads and `--force-scalar` switches their banded kernels to the scalar
+path. The `--check
 score|alignment` ground truth and the `-a edlib` comparison algorithm
 run through an independent edlib oracle (tools/oracle_src/
 edlib_oracle.cpp, built against the reference's vendored edlib) when it
@@ -22,10 +25,12 @@ is built, falling back to the exact DP for scores.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
-from quicked_tpu_torch import seqio
+from quicked_tpu_torch import native, seqio
+from quicked_tpu_torch.aligner.batch import router_ready
 from quicked_tpu_torch.cigar import Cigar
 from quicked_tpu_torch.device import resolve_device
 from quicked_tpu_torch.params import QuickedAlgo, QuickedParams
@@ -59,8 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--check", "-c", default=None,
                    choices=("display", "correct", "score", "alignment"))
     p.add_argument("--num-threads", "-t", type=int, default=None,
-                   help="accepted for the reference's flag set; no "
-                        "effect, since every pair runs on the device")
+                   help="cap the host C lanes' threads for the run (the "
+                        "reference's OpenMP batch loop, "
+                        "align_benchmark.c:232-306)")
     p.add_argument("--batch-size", type=int, default=10000)
     p.add_argument("--progress", "-P", type=int, default=100000)
     p.add_argument("--verbose", "-v", nargs="?", const=1, type=int,
@@ -255,22 +261,30 @@ def main(argv=None) -> int:
         profiler.start()
 
     n_processed = 0
-    timer_global.start()
-    try:
-        for batch_pairs in seqio.read_seq_batches(args.input,
-                                                  args.batch_size):
-            n_processed += _run_batch(args, params, timers, batch_pairs,
-                                      out_file, output_full, stats,
-                                      n_processed, timer_global, device)
-    finally:
-        timer_global.stop()
-        if profiler is not None:
-            profiler.stop()
-            os.makedirs(args.profile, exist_ok=True)
-            profiler.export_chrome_trace(
-                os.path.join(args.profile, "align_benchmark.trace.json"))
-        if out_file:
-            out_file.close()
+    # -t caps the host C lanes through a thread budget, not the process
+    # environment, so that nothing outlives the run
+    budget = (native.thread_budget(args.num_threads)
+              if args.num_threads is not None else contextlib.nullcontext())
+    with budget:
+        # the router's probes and first-use calibration, before the clock
+        native.set_force_scalar(params.force_scalar)
+        router_ready(device)
+        timer_global.start()
+        try:
+            for batch_pairs in seqio.read_seq_batches(args.input,
+                                                      args.batch_size):
+                n_processed += _run_batch(args, params, timers, batch_pairs,
+                                          out_file, output_full, stats,
+                                          n_processed, timer_global, device)
+        finally:
+            timer_global.stop()
+            if profiler is not None:
+                profiler.stop()
+                os.makedirs(args.profile, exist_ok=True)
+                profiler.export_chrome_trace(
+                    os.path.join(args.profile, "align_benchmark.trace.json"))
+            if out_file:
+                out_file.close()
 
     if not args.quiet:
         _print_results(args, timers, timer_global, stats, n_processed)

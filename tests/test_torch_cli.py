@@ -227,8 +227,9 @@ def test_torch_cli_profile_and_memory_report(datasets, tmp_path, capsys,
 
 def test_torch_cli_num_threads_is_accepted(datasets, monkeypatch, capsys,
                                            tmp_path):
-    """-t is the reference's flag; every pair runs on the device, so the
-    port's CLI accepts it and the lines are those of a run without it."""
+    """-t is the reference's flag; it caps the host C lanes' threads for
+    the run (through a thread budget, not the environment), so the lines
+    are those of a run without it and the environment is unchanged."""
     port, jax = run_both(monkeypatch, capsys, tmp_path,
                          ["-a", "quicked", "-i", datasets["cli"], "-q"])
     assert port[0] == jax[0] == 0, port[2]
@@ -239,6 +240,34 @@ def test_torch_cli_num_threads_is_accepted(datasets, monkeypatch, capsys,
     with open(out) as f:
         assert f.read() == port[1] == jax[1]
     assert dict(os.environ) == env
+
+
+def test_torch_cli_num_threads_caps_the_host_lanes(datasets, monkeypatch,
+                                                  tmp_path):
+    """-t 2 caps `native.default_threads()` (the host C lanes' threads)
+    inside the run and nowhere after it; the lines equal those of a run
+    without it."""
+    from quicked_tpu_torch import native
+
+    seen = {}
+    real = native.set_force_scalar
+
+    def spy(v):
+        seen.setdefault(key, set()).add(native.default_threads())
+        real(v)
+
+    monkeypatch.setattr(native, "set_force_scalar", spy)
+    outside = native.default_threads()
+    lines = {}
+    for key, extra in (("default", []), ("t2", ["-t", "2"])):
+        out = str(tmp_path / f"{key}.tsv")
+        assert cli.main(["-a", "quicked", "-i", datasets["indels"], "-q",
+                         "--device", "cpu", *extra, "-o", out]) == 0
+        with open(out) as f:
+            lines[key] = f.read()
+    assert lines["default"] == lines["t2"] and lines["t2"]
+    assert seen == {"default": {outside}, "t2": {2}}
+    assert native.default_threads() == outside
 
 
 @pytest.mark.parametrize("argv", [

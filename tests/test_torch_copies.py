@@ -179,8 +179,9 @@ def check_native():
         np.testing.assert_array_equal(a, b)
     b = batch_prep.prepare_banded_batch(pats, txts, [300] * len(pats),
                                         full=False)
-    got = native.run_banded_native(b)
     from quicked_tpu.ops.banded_native import run_banded_native
+    from quicked_tpu_torch.ops import banded_native
+    got = banded_native.run_banded_native(b)
     want = run_banded_native(jax_prep.prepare_banded_batch(
         pats, txts, [300] * len(pats), full=False))
     for k in want:
@@ -439,12 +440,134 @@ def check_distributed_merge():
         assert outs[0][2] == ["out.tsv"], kind
 
 
+def check_host_threads():
+    """utils.host_threads.map_lanes and the loader's thread controls
+    (`default_threads`: the thread budget, then QUICKED_TPU_CPU_THREADS,
+    then every usable core) against the JAX package's."""
+    from quicked_tpu.utils import host_threads as jax_threads
+    from quicked_tpu_torch.utils import host_threads
+
+    for n, workers in ((0, None), (1, None), (7, 3), (40, None), (5, 9)):
+        outs = []
+        for mod in (host_threads, jax_threads):
+            out = np.zeros(max(n, 1), np.int64)
+
+            def fn(i, out=out):
+                out[i] = i * i + 1
+
+            mod.map_lanes(fn, n, workers)
+            outs.append(out)
+        np.testing.assert_array_equal(*outs)
+    old = os.environ.pop("QUICKED_TPU_CPU_THREADS", None)
+    try:
+        assert native.default_threads() == jax_native.default_threads()
+        os.environ["QUICKED_TPU_CPU_THREADS"] = "3"
+        assert native.default_threads() == jax_native.default_threads() == 3
+        with native.thread_budget(2), jax_native.thread_budget(2):
+            assert native.default_threads() == \
+                jax_native.default_threads() == 2
+            with native.thread_budget(0):
+                assert native.default_threads() == 1
+            assert native.default_threads() == 2
+        assert native.default_threads() == 3
+    finally:
+        os.environ.pop("QUICKED_TPU_CPU_THREADS", None)
+        if old is not None:
+            os.environ["QUICKED_TPU_CPU_THREADS"] = old
+
+
+def check_banded_native():
+    """ops.banded_native (the host C full alignment, threaded over pairs,
+    and the score pass with its band state) against the JAX package's,
+    on string and pre-encoded inputs."""
+    if not (native.available() and jax_native.available()):
+        pytest.skip("no C compiler for the host C runtime")
+    from quicked_tpu.ops import banded_native as jax_bn
+    from quicked_tpu_torch.ops import banded_native as bn
+
+    pairs = _pairs(7, 700, seed=31)
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    cos = [max(len(p), len(t)) * 15 // 100 for p, t in pairs]
+    assert bn.native_available() == jax_bn.native_available()
+    for args, kw in (((pats, txts, cos), {}),
+                     ((pats, txts, cos, 2), {}),
+                     (([dna.encode(p) for p in pats],
+                       [dna.encode(t) for t in txts], cos),
+                      dict(raws=([p.encode() for p in pats],
+                                 [t.encode() for t in txts])))):
+        got = bn.run_banded_full_native(*args, **kw)
+        want = jax_bn.run_banded_full_native(*args, **kw)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
+    mids = [(len(t) + 1) // 2 for t in txts]
+    for kw in (dict(), dict(text_finish=mids, pad_to_b=8, min_nb=16,
+                            min_ebb=4)):
+        got = bn.run_banded_native(batch_prep.prepare_banded_batch(
+            pats, txts, cos, full=False, **kw))
+        want = jax_bn.run_banded_native(jax_prep.prepare_banded_batch(
+            pats, txts, cos, full=False, **kw))
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def check_native_banded_align_full():
+    """The loader's banded_align_full against the JAX package's, pair by
+    pair; its ops equal the port's full fill and traceback (their plain
+    versions) on the same pairs."""
+    if not (native.available() and jax_native.available()):
+        pytest.skip("no C compiler for the host C runtime")
+    from quicked_tpu_torch.aligner.batch import banded_align_batch
+
+    pairs = _pairs(4, 300, seed=33)
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    cos = [max(len(p), len(t)) * 15 // 100 for p, t in pairs]
+    full = []
+    for (p, t), c in zip(pairs, cos):
+        args = (dna.encode(p), p.encode(), dna.encode(t), t.encode(), c)
+        got = native.banded_align_full(*args)
+        assert got == jax_native.banded_align_full(*args)
+        full.append(got)
+    scores, ops = banded_align_batch(pats, txts, cos, only_score=False,
+                                     device="cpu")
+    assert [s for s, _ in full] == [int(x) for x in scores]
+    assert [o for _, o in full] == ops
+
+
+def check_native_force_scalar():
+    """set_force_scalar / get_force_scalar / simd_pass_count through both
+    loaders (one C runtime each): the vector passes count only without
+    force_scalar, and the scores do not change."""
+    if not (native.available() and jax_native.available()):
+        pytest.skip("no C compiler for the host C runtime")
+    pairs = _pairs(4, 2000, seed=35)
+    kw = dict(bandwidth=15, window_size=9, overlap_size=1,
+              hew_threshold=(40, 40), hew_percentage=(15, 15),
+              budget=16 << 20)
+    for mod in (native, jax_native):
+        res, passes = [], []
+        for scalar in (False, True):
+            mod.set_force_scalar(scalar)
+            assert mod.get_force_scalar() is scalar
+            before = mod.simd_pass_count()
+            st, sc, ops = mod.quicked_batch([p for p, _ in pairs],
+                                            [t for _, t in pairs], **kw)
+            passes.append(mod.simd_pass_count() - before)
+            res.append((list(st), list(sc), list(ops)))
+        mod.set_force_scalar(False)
+        assert passes[0] > 0 and passes[1] == 0, passes
+        assert res[0] == res[1]
+
+
 CASES = {f.__name__[len("check_"):]: f for f in (
     check_generate, check_prepare_banded_batch, check_band_geometry,
     check_hirschberg_split_fast, check_cigar, check_align_one_np,
     check_native, check_native_windowed, check_native_windowed_full,
     check_expand_window_records, check_seqio, check_edit_dp,
-    check_profiler, check_shard_lanes, check_distributed_merge)}
+    check_profiler, check_shard_lanes, check_distributed_merge,
+    check_host_threads, check_banded_native, check_native_banded_align_full,
+    check_native_force_scalar)}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

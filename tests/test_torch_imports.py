@@ -30,7 +30,7 @@ def test_torch_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "'quicked_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 37, names\n"
+        "assert len(names) >= 40, names\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'quicked_tpu', 'tests'))\n"
         "assert not bad, bad\n"
@@ -368,3 +368,28 @@ def test_torch_kernels_match_plain_on_card():
         want = wc.windowed_full_torch(wc.stage_windowed(b, "cpu"), ws, ovl)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w), ws
+
+
+@pytest.mark.cuda
+def test_torch_router_probes_and_calibrates_on_card(tmp_path, monkeypatch):
+    """The venue router's probes and each card family's calibration on a
+    card: the readback and dispatch probes give plausible figures and are
+    memoized, and one real batch through each family's kernel gives a
+    positive rate (or declines). Runs on a machine with a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    from quicked_tpu_torch.aligner import batch as ab
+
+    monkeypatch.setenv("QUICKED_TPU_CACHE", str(tmp_path))
+    monkeypatch.setattr(ab, "_LINK_MBPS", [])
+    monkeypatch.setattr(ab, "_DISPATCH_S", [])
+    monkeypatch.setattr(ab, "_RATES", {})
+    mbps = ab._device_readback_mbps()
+    assert mbps > 1.0 and ab._device_readback_mbps() == mbps
+    assert ab._probe_cache_get("readback_mbps") == mbps
+    disp = ab._device_dispatch_s()
+    assert 0.0 < disp < 1.0 and ab._device_dispatch_s() == disp
+    for family in ("fill", "full", "sysband", "cscan"):
+        rate = ab._calibrate_device_rate(family)
+        assert rate is None or rate > 1e6, (family, rate)

@@ -117,9 +117,10 @@ Run from the repository root. It builds the port's CUDA kernels from
            `torch.profiler` and prints the device time of each kernel and
            copy and the card's busy share of the wall;
   phase 9  the venue router on its default route: the probes (readback
-           MB/s, dispatch latency) and the six kernel rates calibrated
-           afresh on this host (host C score pass and full alignment, the
-           fill, the full fill and traceback, systolic, carry-scan), with
+           MB/s, dispatch latency) and the nine rates calibrated afresh on
+           this host (host C score pass, full alignment, windowed bound
+           and walk of read-back planes; the fill, the full fill and
+           traceback, systolic, carry-scan, the windowed bound), with
            the calibration's seconds and the fill's rate against its lane
            count; the phase-3 and long-read pairs again, each pair's
            status, score and CIGAR equal to the host C cascade, their
@@ -131,7 +132,28 @@ Run from the repository root. It builds the port's CUDA kernels from
            card lane's bases/s, its staged bytes per base); the host
            calibrations repeated three times; and, for the 10 kbp run's
            largest full-fill chunk and the long-read run's first, the
-           router's estimate of each venue beside its measured wall.
+           router's estimate of each venue beside its measured wall;
+  phase 10 the venues added last, the probes and rates resolved afresh
+           before any timed run: (a) the
+           plane-readback lane (the full fill, its planes read back, the
+           host C walk) run by itself on both full-fill chunks of phase
+           9, every score and CIGAR equal to the host C fill and traceback
+           and to the card's; the planes' bytes and readback MB/s, split
+           on the card and in numpy, the card's fill and its traceback
+           each timed alone beside their estimated terms, and each
+           venue's estimate beside its wall; (b) the windowed host C lane and the card's kernel on
+           both slices' stage-1 and stage-2 buckets (stage 2 forward and
+           reverse), scores and HEW counts equal, both estimates beside
+           both walls, and the lengths the router sends to host C; (c)
+           the long-read slice on the default route beside the card
+           pinned, both equal to the host C cascade; (d) the host C
+           cascade over the 10 kbp pairs in three fresh processes, first
+           and warm calls and peak RSS: the port's defaults (no heap
+           settings, one call), the JAX package's heap retention and
+           prefault, and its 8 MiB pipelined chunks; and 100 bp x 100,000
+           pairs at 1-5% error in 8 MiB pipelined chunks against the
+           default one call and through `BatchAligner` on the default
+           route, all equal.
 
 Phases 2 to 8, the recorded runs and phase 4 run with the card's venue
 pinned (QUICKED_TPU_PIN_CARD=1, the router's one switch), so that every
@@ -2024,7 +2046,8 @@ def phase8(runs, quicked_lines, smi, torch):
           f"{time.perf_counter() - t0:.1f} s with the process start")
 
 
-HOST_VENUES = ("host_c", "full_host_c", "cascade_native")
+HOST_VENUES = ("host_c", "full_host_c", "cascade_native",
+               "windowed_host_c", "full_fill_readback")
 MIXED_LONG = 30_000     # past the host C lane's ceiling at bandwidth 15
 
 
@@ -2308,7 +2331,8 @@ def phase9(gen, runs, chunks, quicked_lines, smi, torch):
             adv = qb._deep_band_advances(chunk)
             est_host = adv / qb._host_rate("host_full", n) * 1e3
             est_card = qb._full_device_est_s(chunk, adv) * 1e3
-            pick = "host" if qb._prefer_host_full(chunk) else "card"
+            pick = {"full_host_c": "host", "full_fill_tb": "card"}.get(
+                qb._full_venue(chunk), "card's fill and the host C walk")
             run_banded_full_native(enc_p, enc_t, cos, raws=raws)
             _, full_host = host_ms(lambda: run_banded_full_native(
                 enc_p, enc_t, cos, raws=raws))
@@ -2344,13 +2368,454 @@ def phase9(gen, runs, chunks, quicked_lines, smi, torch):
             staged_bytes_per_base=staged_h2d / bases,
             host_adv_per_s_per_core=rates["host"]["rate"] / cores,
             host_full_adv_per_s_per_core=rates["host_full"]["rate"] / cores,
+            host_windowed_adv_per_s_per_core=(rates["host_windowed"]["rate"]
+                                              / cores),
+            walk_steps_per_s_per_core=rates["walk"]["rate"] / cores,
+            windowed_adv_per_s=rates["windowed"]["rate"],
             fill_adv_per_s=rates["fill"]["rate"],
             full_adv_per_s=rates["full"]["rate"],
+            traceback_steps_per_s=rates["traceback"]["rate"],
             sysband_adv_per_s=rates["sysband"]["rate"],
             cscan_adv_per_s=rates["cscan"]["rate"],
             readback_mbps=qb._device_readback_mbps(),
+            pinned_readback_mbps=qb._planes_readback_mbps(),
             dispatch_s=qb._device_dispatch_s(),
             calibration_s=cal_s, full_chunks=full_venues)))
+
+
+COLD_CHILD = r'''
+import json, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+from quicked_tpu_torch import native, seqio
+# the JAX package's heap retention and prefault, and its chunk size
+native.MALLOC_RETAIN = sys.argv[3] == "on"
+native.BATCH_CHUNK_BASES = int(sys.argv[5])
+
+
+def rss_kib():
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS"):
+                return int(line.split()[1])
+    return 0
+
+
+# the peak RSS, sampled every 5 ms (getrusage's ru_maxrss keeps the
+# parent's across exec, and not every kernel gives VmHWM)
+peak, done = [rss_kib()], threading.Event()
+
+
+def watch():
+    while not done.wait(0.005):
+        peak[0] = max(peak[0], rss_kib())
+
+
+threading.Thread(target=watch, daemon=True).start()
+pairs = list(seqio.read_seq_pairs(sys.argv[2]))
+assert native.available()
+kw = json.loads(sys.argv[4])
+args = ([p for p, _ in pairs], [t for _, t in pairs])
+walls = []
+for _ in range(3):
+    t0 = time.perf_counter()
+    st, sc, ops = native.quicked_batch(*args, **kw)
+    walls.append(time.perf_counter() - t0)
+    ops = list(ops)
+done.set()
+print(json.dumps(dict(walls=walls, scores=[int(x) for x in sc],
+                      status=[int(x) for x in st], ops=ops,
+                      max_rss_kib=max(peak[0], rss_kib()))))
+'''
+
+
+def cascade_kw(params):
+    """`native.quicked_batch`'s keywords for `params`, RLE CIGARs."""
+    from quicked_tpu_torch.params import HIRSCHBERG_BUFFER_SIZE
+
+    return dict(bandwidth=params.bandwidth, window_size=params.window_size,
+                overlap_size=params.overlap_size,
+                hew_threshold=list(params.hew_threshold),
+                hew_percentage=list(params.hew_percentage),
+                budget=HIRSCHBERG_BUFFER_SIZE, rle=True)
+
+
+def phase10_readback(chunks, smi, torch):
+    """(a) The plane-readback lane on each full-fill chunk, run by the lane
+    itself whatever the router picks: every score and CIGAR equal to the
+    host C fill and traceback and to the card's fill and traceback; its
+    planes' bytes and readback rate (split on the card, and in numpy after
+    one copy), each venue's estimate beside its wall, the router's pick."""
+    from quicked_tpu_torch import native
+    from quicked_tpu_torch.aligner import batch as qb
+    from quicked_tpu_torch.ops import banded_cuda as bc
+    from quicked_tpu_torch.ops.banded_native import run_banded_full_native
+    from quicked_tpu_torch.ops.banded_traceback_cuda import traceback_ops
+    from quicked_tpu_torch.ops.batch_prep import prepare_banded_batch
+
+    dev = torch.device("cuda")
+    out_rows = {}
+    for ctag, chunk in chunks:
+        n = len(chunk.enc_patterns)
+        enc_p, enc_t = chunk.enc_patterns, chunk.enc_texts
+        cos = [int(c) for c in chunk.cutoff[:n]]
+        raws = ([e.tobytes() for e in enc_p], [e.tobytes() for e in enc_t])
+        est = {k: v * 1e3 for k, v in qb.full_estimates(chunk).items()}
+        pick = qb._full_venue(chunk)
+        run_banded_full_native(enc_p, enc_t, cos, raws=raws)
+        (want_sc, want_ops), host_wall = host_ms(
+            lambda: run_banded_full_native(enc_p, enc_t, cos, raws=raws))
+
+        def readback():
+            b = prepare_banded_batch(enc_p, enc_t, cos, full=True)
+            return qb._run_full_readback(b, dev, *raws)
+
+        readback()
+        (rb_sc, rb_ops), rb_wall, rb_launches, _ = run_counted(readback,
+                                                              torch)
+        pin_card_venue()
+        qb.banded_align_batch(enc_p, enc_t, cos, only_score=False,
+                              device="cuda", raws=raws)
+        (tb_sc, tb_ops), tb_wall, _, _ = run_counted(
+            lambda: qb.banded_align_batch(enc_p, enc_t, cos,
+                                          only_score=False, device="cuda",
+                                          raws=raws), torch)
+        os.environ.pop(qb.PIN_CARD_ENV, None)
+        check(list(rb_sc) == list(want_sc) == list(tb_sc),
+              f"phase 10 {ctag}: the readback lane's scores differ")
+        bad = [i for i in range(n)
+               if not rb_ops[i] == want_ops[i] == tb_ops[i]]
+        check(not bad, f"phase 10 {ctag}: readback CIGARs {bad[:5]} differ "
+              f"from the host C fill and traceback or the card's")
+        check(rb_launches["banded_fill"] == 1 and
+              rb_launches["banded_traceback"] == 0,
+              f"phase 10 {ctag}: readback launches {rb_launches}")
+
+        # the lanes' parts: the fill alone (prepared, staged, its scores
+        # read back, as the `full` rate is calibrated), the card's
+        # traceback alone, and the two ways of splitting the planes
+        def fill():
+            b = prepare_banded_batch(enc_p, enc_t, cos, full=True)
+            o = bc.fill_staged(bc.stage_banded(b, dev))
+            o["scores_by_k"].cpu()
+            return o
+
+        fill()
+        out, fill_ms = host_ms(fill)
+        traceback_ops(out["mat_pv"], out["mat_mv"], *raws, chunk.plen,
+                      chunk.tlen, chunk.prolog, n)
+        _, card_tb_ms = host_ms(lambda: traceback_ops(
+            out["mat_pv"], out["mat_mv"], *raws, chunk.plen, chunk.tlen,
+            chunk.prolog, n))
+        adv = qb._deep_band_advances(chunk)
+        fill_est = qb._full_fill_est_s(chunk, adv) * 1e3
+        parts = dict(fill_ms=fill_ms, fill_est_ms=fill_est,
+                     card_traceback_ms=card_tb_ms,
+                     card_traceback_est_ms=est["full_fill_tb"] - fill_est,
+                     readback_and_walk_est_ms=(est["full_fill_readback"]
+                                               - fill_est))
+        planes, split_card = host_ms(lambda: bc.full_planes_to_host(out))
+        _, split_np = host_ms(lambda: (bc.split_u64(out["mat_pv"]),
+                                       bc.split_u64(out["mat_mv"])))
+        del out
+        praws, traws = raws
+        prologs = [int(x) for x in chunk.prolog[:n]]
+        native.traceback_banded_batch(planes, chunk.B, praws, traws, prologs)
+        _, walk_ms = host_ms(lambda: native.traceback_banded_batch(
+            planes, chunk.B, praws, traws, prologs))
+        del planes
+        nbytes = qb._plane_bytes(chunk)
+        measured = {"full_host_c": host_wall, "full_fill_tb": tb_wall * 1e3,
+                    "full_fill_readback": rb_wall * 1e3}
+        out_rows[ctag] = dict(
+            pairs=n, plane_bytes=nbytes,
+            readback_mbps_card_split=nbytes / split_card / 1e3,
+            readback_mbps_numpy_split=nbytes / split_np / 1e3,
+            probe_mbps=qb._device_readback_mbps(),
+            pinned_probe_mbps=qb._planes_readback_mbps(), walk_ms=walk_ms,
+            walk_steps=qb._walk_steps(chunk), est_ms=est,
+            measured_ms=measured, parts_ms=parts, picks=pick,
+            fastest=min(measured, key=measured.get))
+        print(f"[phase 10] readback lane, {ctag} chunk ({n} pairs, B={chunk.B}"
+              f" EBB={chunk.EBB} NB={chunk.NB}): {nbytes} plane bytes, read "
+              f"back split on the card in {split_card:.1f} ms "
+              f"({nbytes / split_card / 1e3:.0f} MB/s), in numpy after one "
+              f"copy in {split_np:.1f} ms ({nbytes / split_np / 1e3:.0f} "
+              f"MB/s; probes {qb._device_readback_mbps():.0f} MB/s, "
+              f"{qb._planes_readback_mbps():.0f} MB/s page-locked); host C "
+              f"walk {walk_ms:.1f} ms; every score and CIGAR equal to the "
+              f"host C fill and traceback and to the card's ({smi})")
+        print(f"[phase 10]   {ctag}: estimated ms " + json.dumps(est)
+              + "; measured ms " + json.dumps(measured)
+              + f"; the router picks {pick}; parts " + json.dumps(parts))
+    return out_rows
+
+
+def windowed_buckets(pats, txts, ws):
+    """The buckets `cascade.windowed_score_batch` makes: index lists by
+    the pow2 of each pair's longer side (at least a window)."""
+    by_key: dict = {}
+    for i, (p, t) in enumerate(zip(pats, txts)):
+        key = 1 << max(max(len(p), len(t), 64 * ws) - 1, 0).bit_length()
+        by_key.setdefault(key, []).append(i)
+    return by_key
+
+
+def flip_lengths(n, ws, ovl):
+    """The router's windowed decision for n pairs of each length from 128
+    bp to 1 Mbp (pow2): the lengths it sends to host C."""
+    from quicked_tpu_torch.aligner import batch as qb
+
+    host = []
+    for k in range(7, 21):
+        fake = [range(1 << k)] * n
+        if qb.prefer_host_windowed(fake, fake, ws, ovl):
+            host.append(1 << k)
+    return host
+
+
+def phase10_windowed(runs, torch):
+    """(b) The windowed host C lane on both slices' stage-1 and stage-2
+    buckets (stage 2 forward and reverse, on the pairs stage 1 leaves hard),
+    each bucket run on both venues: scores and HEW counts equal; both
+    estimates beside both walls; the lengths the router sends to host C
+    for the bucket's pairs, beside the JAX package's WINDOWED_CPU_MIN_LEN
+    (8192, a TPU host's rule)."""
+    import numpy as np
+
+    from quicked_tpu_torch.aligner import batch as qb
+    from quicked_tpu_torch.aligner import cascade as qc
+    from quicked_tpu_torch.ops.windowed_cuda import (prepare_windowed_batch,
+                                                     run_windowed_score)
+    from quicked_tpu_torch.params import QuickedParams
+
+    params = QuickedParams()
+    rows = {}
+    for tag, pairs, _, _ in runs:
+        pats = [p for p, _ in pairs]
+        txts = [t for _, t in pairs]
+        max_len = np.array([max(len(p), len(t)) for p, t in pairs])
+        stages = [("stage1", pats, txts, 2, 1, params.hew_threshold[0])]
+        _, h1 = qc._windowed_native_batch(pats, txts,
+                                          params.hew_threshold[0], 2, 1)
+        hard = [i for i in range(len(pairs)) if h1[i] * 64 >
+                max_len[i] * params.hew_percentage[0] // 100]
+        ws, ovl = params.window_size, params.overlap_size
+        hp = [pats[i] for i in hard]
+        ht = [txts[i] for i in hard]
+        stages += [("stage2_fwd", hp, ht, ws, ovl, params.hew_threshold[1]),
+                   ("stage2_rev", [p[::-1] for p in hp],
+                    [t[::-1] for t in ht], ws, ovl,
+                    params.hew_threshold[1])]
+        for stage, sp, stx, w, o, thr in stages:
+            for size, idxs in sorted(windowed_buckets(sp, stx, w).items()):
+                bp = [sp[i] for i in idxs]
+                bt = [stx[i] for i in idxs]
+                est_host, est_card = qb.windowed_estimates(bp, bt, w, o)
+                qc._windowed_native_batch(bp, bt, thr, w, o)
+                (hs, hh), host_wall = host_ms(
+                    lambda: qc._windowed_native_batch(bp, bt, thr, w, o))
+
+                def card():
+                    return run_windowed_score(
+                        prepare_windowed_batch(bp, bt, window_size=w), thr,
+                        w, o, device="cuda")
+
+                card()
+                (cs_, ch), card_wall, launches, _ = run_counted(card, torch)
+                check(launches["windowed_score"] == 1,
+                      f"phase 10 {tag} {stage}: {launches}")
+                bad = [j for j in range(len(idxs))
+                       if (hs[j], hh[j]) != (cs_[j], ch[j])]
+                check(not bad, f"phase 10 {tag} {stage} bucket {size}: "
+                      f"pairs {bad[:5]} differ between host C and the card")
+                pick = ("windowed_host_c" if qb.prefer_host_windowed(
+                    bp, bt, w, o) else "windowed")
+                host_lens = flip_lengths(len(idxs), w, o)
+                key = f"{tag} {stage} {size}"
+                rows[key] = dict(
+                    pairs=len(idxs), ws=w, ovl=o,
+                    advances=qb.windowed_advances(bp, bt, w, o),
+                    est_ms=dict(host=est_host * 1e3, card=est_card * 1e3),
+                    measured_ms=dict(host=host_wall, card=card_wall * 1e3),
+                    picks=pick, host_c_lengths=host_lens)
+                print(f"[phase 10] windowed {key} ({len(idxs)} pairs, ws {w}"
+                      f" ovl {o}, {rows[key]['advances']:.4g} advances): "
+                      f"host C estimated {est_host * 1e3:.1f} ms, measured "
+                      f"{host_wall:.1f} ms; the card estimated "
+                      f"{est_card * 1e3:.1f} ms, measured "
+                      f"{card_wall * 1e3:.1f} ms; picks {pick}; every score "
+                      f"and HEW count equal; for {len(idxs)} pairs the "
+                      f"router sends lengths {host_lens or 'none'} (128 bp-1 "
+                      f"Mbp, pow2) to host C (the JAX package: 8192 and "
+                      f"longer)")
+    return rows
+
+
+def phase10_longread(run, torch):
+    """(c) The long-read slice on the default route against the card
+    pinned, both equal to the host C cascade."""
+    from quicked_tpu_torch.aligner import batch as qb
+    from quicked_tpu_torch.api import BatchAligner
+    from quicked_tpu_torch.params import QuickedParams
+    from quicked_tpu_torch.utils.profiler import PhaseTimers
+
+    _, pairs, want, _ = run
+    aligner = BatchAligner(QuickedParams(), device="cuda")
+    timers = PhaseTimers()
+    with Venues("phase 10 long-read", pinned=False) as v:
+        res, wall, launches, _ = run_counted(
+            lambda: aligner.align(pairs, timers=timers), torch)
+    same_as_oracle("phase 10 long-read", res, want)
+    report_run("phase 10 long-read", pairs, wall, launches, timers)
+    pin_card_venue()
+    ptimers = PhaseTimers()
+    with Venues("phase 10 long-read pinned") as pv:
+        res, pinned, plaunches, _ = run_counted(
+            lambda: aligner.align(pairs, timers=ptimers), torch)
+    os.environ.pop(qb.PIN_CARD_ENV, None)
+    same_as_oracle("phase 10 long-read pinned", res, want)
+    report_run("phase 10 long-read pinned", pairs, pinned, plaunches,
+               ptimers)
+    print(f"[phase 10] long-read slice: default route {wall:.3f} s (venues "
+          + json.dumps(v.diff) + f"), the card pinned {pinned:.3f} s (venues "
+          + json.dumps(pv.diff) + "); every status, score and CIGAR of both "
+          "equal to the host C cascade")
+    return dict(default_s=wall, pinned_s=pinned, venues=v.diff)
+
+
+# the JAX package's `quicked_batch` chunk size
+JAX_CHUNK_BASES = 8 << 20
+
+
+def cold_cascade(seq, heap, chunk_bases, kw):
+    """Three `native.quicked_batch` calls over the .seq file's pairs in a
+    fresh process, with the heap retention and prefault set before the
+    library loads (`heap`) or not, in chunks of `chunk_bases`. Returns the
+    child's result, its peak RSS in KiB among it."""
+    out = subprocess.run(
+        [sys.executable, "-c", COLD_CHILD, ROOT, seq,
+         "on" if heap else "off", json.dumps(kw), str(chunk_bases)],
+        capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"phase 10 cold cascade: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def phase10_cascade(gen, run, torch):
+    """(d) The host C cascade in fresh processes (first and warm calls and
+    peak RSS: the port's defaults, the JAX package's heap settings, its
+    8 MiB chunks), then 100 bp x 100,000 pairs at 1-5% error: 8 MiB
+    pipelined chunks against the default one call, and through
+    BatchAligner on the default route."""
+    import tempfile
+
+    from quicked_tpu_torch import native, seqio
+    from quicked_tpu_torch.api import BatchAligner
+    from quicked_tpu_torch.params import QuickedParams
+
+    params = QuickedParams()
+    kw = cascade_kw(params)
+    _, pairs, want, _ = run
+    res = {}
+    with tempfile.TemporaryDirectory() as td:
+        seq = os.path.join(td, "pairs.seq")
+        seqio.write_seq_pairs(seq, pairs)
+        for name, heap, chunk in (
+                ("default", False, native.BATCH_CHUNK_BASES),
+                ("heap", True, native.BATCH_CHUNK_BASES),
+                ("chunked", False, JAX_CHUNK_BASES)):
+            got = cold_cascade(seq, heap, chunk, kw)
+            over = [i for i, s in enumerate(got["status"]) if s != 0]
+            bad = [i for i, (sc, cig) in enumerate(want) if i not in over
+                   and (got["scores"][i] != sc
+                        or (got["ops"][i] or None) != cig)]
+            check(not bad, f"phase 10 cold cascade: pairs {bad[:5]} differ")
+            first, *warm = got["walls"]
+            res[name] = dict(walls=got["walls"],
+                             max_rss_kib=got["max_rss_kib"])
+            print(f"[phase 10] host C cascade in a fresh process, "
+                  f"{len(pairs)} x 10 kbp, heap retention and prefault "
+                  f"{'on' if heap else 'off'}, chunks of {chunk} bases: "
+                  f"first call {first:.3f} s, then {warm[0]:.3f} s, "
+                  f"{warm[1]:.3f} s ({first / min(warm):.2f}x the warm "
+                  f"call), peak RSS {got['max_rss_kib']} KiB; every pair "
+                  f"the cascade finished equal to phase 3's oracle")
+
+    t0 = time.perf_counter()
+    short = []
+    for k, err in enumerate((0.01, 0.02, 0.03, 0.04, 0.05)):
+        short += list(gen.generate_pairs(20_000, 100, error=err,
+                                         seed=SEED + 60 + k))
+    gen_s = time.perf_counter() - t0
+    args = ([p for p, _ in short], [t for _, t in short])
+    real = native.BATCH_CHUNK_BASES
+    got, walls = {}, {"chunked": [], "one": []}
+    try:
+        # in turns: the JAX package's pipelined chunks, then the default
+        # one call, twice each after a first call
+        native.quicked_batch(*args, **kw)
+        for mode in ("chunked", "one") * 2:
+            native.BATCH_CHUNK_BASES = (JAX_CHUNK_BASES if mode == "chunked"
+                                        else real)
+            (st, sc, ops), ms = host_ms(lambda: native.quicked_batch(*args,
+                                                                     **kw))
+            got[mode] = (list(st), list(sc), list(ops))
+            walls[mode].append(ms)
+    finally:
+        native.BATCH_CHUNK_BASES = real
+    check(got["chunked"] == got["one"], "phase 10: the pipelined chunks "
+          "differ from one call")
+    st, sc, ops = got["one"]
+    bases = sum(len(p) + len(t) for p, t in short)
+    chunks = -(-bases // JAX_CHUNK_BASES)
+    aligner = BatchAligner(params, device="cuda")
+    aligner.align(short[:1000])
+    with Venues("phase 10 100 bp", pinned=False) as v:
+        out, wall, launches, _ = run_counted(lambda: aligner.align(short),
+                                             torch)
+    bad = [i for i in range(len(short)) if int(out.score[i]) != sc[i]
+           or out.cigar[i] != (ops[i] or None)]
+    check(not bad, f"phase 10 100 bp: pairs {bad[:5]} differ from the host "
+          f"C cascade")
+    res.update(short_pairs=len(short), generate_s=gen_s,
+               chunked_ms=walls["chunked"], one_chunk_ms=walls["one"],
+               aligner_s=wall, venues=v.diff)
+    print(f"[phase 10] 100 bp x {len(short)} pairs at 1-5% error "
+          f"(generated in {gen_s:.1f} s): host C cascade in ~{chunks} "
+          f"pipelined chunks of {JAX_CHUNK_BASES} bases "
+          f"{walls['chunked']} ms, in one call (the default) "
+          f"{walls['one']} ms (in turns), equal; BatchAligner on the "
+          f"default route {wall:.3f} s ({len(short) / wall:.0f} pairs/s), "
+          f"venues " + json.dumps(v.diff)
+          + " launches " + json.dumps(launches) + ", every score and CIGAR "
+          "equal to the host C cascade")
+    return res
+
+
+def phase10(gen, runs, chunks, smi, torch):
+    """The venues added last, on the default route with the probes and
+    rates resolved afresh into an empty probe cache before any timed run
+    (phase 9's cache is gone, and its last `unpin` cleared the router's
+    memo): see the module docstring."""
+    import tempfile
+
+    from quicked_tpu_torch.aligner import batch as qb
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as cache:
+        unpin(cache)
+        qb.router_ready(torch.device("cuda"))
+        print(f"[phase 10] probes and rates resolved afresh in "
+              f"{time.perf_counter() - t0:.3f} s: " + json.dumps(dict(
+                  readback_mbps=qb._device_readback_mbps(),
+                  pinned_readback_mbps=qb._planes_readback_mbps(),
+                  dispatch_s=qb._device_dispatch_s(),
+                  **{f: qb._kernel_rate(f) for f in qb.FAMILIES})))
+        rows = dict(readback=phase10_readback(chunks, smi, torch),
+                    windowed=phase10_windowed(runs, torch),
+                    longread=phase10_longread(runs[1], torch),
+                    cascade=phase10_cascade(gen, runs[0], torch))
+    print("[phase 10] " + json.dumps(rows))
+    print(f"[phase 10] {time.perf_counter() - t0:.1f} s ({smi})")
 
 
 def _device_ms(evt):
@@ -2501,11 +2966,12 @@ def main(argv=None) -> int:
         with Venues("phase 4"):
             phase4([("10 kbp slice", pairs),
                     ("long-read slice", long_pairs)], torch)
-        phase9(generate, [("10 kbp", pairs, want, api_wall),
-                          ("long-read", long_pairs, long_want, long_wall)],
-               [("10 kbp", full_chunk), ("long-read", long_chunk)],
-               quicked_lines, card, torch)
-        del full_chunk, long_chunk
+        runs = [("10 kbp", pairs, want, api_wall),
+                ("long-read", long_pairs, long_want, long_wall)]
+        chunks = [("10 kbp", full_chunk), ("long-read", long_chunk)]
+        phase9(generate, runs, chunks, quicked_lines, card, torch)
+        phase10(generate, runs, chunks, card, torch)
+        del full_chunk, long_chunk, chunks
         check("jax" not in sys.modules, "jax was imported")
         print(f"[end] {time.perf_counter() - t_start:.1f} s in all")
     except SmokeFailure as e:

@@ -8,17 +8,23 @@ geometry. A score batch takes the score-kernel family of the JAX
 package's device route (`score_family`, from its batch.py:540-572): the
 fill for shallow bands, the systolic kernel for deep ones, the carry-scan
 kernel for the rest of the deep batches and for tiny ones. A full batch
-takes the full fill plus the on-device traceback. A Hirschberg split
+takes the full fill plus the on-device traceback, or the full fill with
+its band planes read back and walked by the host C runtime
+(`native.traceback_banded_batch`). A Hirschberg split
 level runs its score pass and the split epilogue on the card and reads
 back four numbers per task.
 
 On a card (`device="cuda"`, no mesh) the venue router decides, before
 any launch, whether a batch runs there or on the host C lanes
-(`ops/banded_native.py`): a score batch, split level or full chunk goes
-to the host when its estimated host time (block advances over the
-host's measured rate for as many threads as it has pairs) undercuts the
-card's (dispatch latency + its bytes over the measured link + advances
-over the family's measured rate). Every rate is probed or calibrated on
+(`ops/banded_native.py`): a score batch or split level goes to the host
+when its estimated host time (block advances over the host's measured
+rate for as many threads as it has pairs) undercuts the card's (dispatch
+latency + its bytes over the measured link + advances over the family's
+measured rate); a full chunk takes the least of three estimates
+(`_full_venue`: the host C fill and traceback, the card's fill and
+traceback, the card's fill with its planes read back and the host C
+walk); a windowed bucket goes to the host C kernel when its estimate
+wins (`prefer_host_windowed`). Every rate is probed or calibrated on
 the host the process runs on and kept in the port's own probe cache
 (`_probe_cache_path`). Each routed batch records its venue
 (`venue_snapshot`). QUICKED_TPU_PIN_CARD=1 pins every batch to the card.
@@ -29,8 +35,11 @@ card: each chunk's lanes and each split level's tasks are sharded over
 the mesh's devices, with the kernels the unmeshed run picks.
 
 Not carried over: the cold-shape deferral (`_device_with_cold_deferral`,
-which would serve batches from host C while a kernel builds) and the
-plane readback with a host C walk (`QUICKED_TPU_DEVICE_TB=0`).
+which would serve batches from host C while a kernel builds, and so hide
+the kernel; the port builds each kernel source once at first use), and
+the JAX package's switch between the full chunk's two card lanes
+(`QUICKED_TPU_DEVICE_TB`): the plane-readback lane is a third venue the
+router prices, not a switch.
 """
 
 from __future__ import annotations
@@ -52,7 +61,9 @@ from quicked_tpu_torch.cigar import Cigar
 from quicked_tpu_torch.device import resolve_device
 from quicked_tpu_torch.ops import myers_np
 from quicked_tpu_torch.ops.banded_cscan_cuda import cscan_staged
-from quicked_tpu_torch.ops.banded_cuda import fill_staged, stage_banded
+from quicked_tpu_torch.ops.banded_cuda import (fill_staged,
+                                               full_planes_to_host,
+                                               stage_banded)
 from quicked_tpu_torch.ops.banded_native import (run_banded_full_native,
                                                  run_banded_native)
 from quicked_tpu_torch.ops.banded_sysband_cuda import sysband_staged
@@ -175,18 +186,26 @@ def bucket_keys(plens, tlens, cutoffs, full: bool):
 # (`nvidia-smi --query-gpu=name,power.limit`); every other figure the
 # router reads is probed or calibrated on the host it runs on.
 
-# Fallback block-advance rates, used only when the probe cache holds no
-# measured rate and first-use calibration declines (`_kernel_rate`): the
-# host C score pass and full alignment per usable core
-# (`_calibrate_host_rate`), and each card family on its calibration batch
-# (`_calibrate_device_rate`; "full" is the fill with its planes and the
-# traceback).
+# Fallback rates, used only when the probe cache holds no measured rate
+# and first-use calibration declines (`_kernel_rate`): per usable core,
+# the host C score pass and full alignment (`_calibrate_host_rate`), the
+# host C windowed bound (`_calibrate_host_windowed_rate`) in block
+# advances/s, and the host C walk of read-back planes
+# (`_calibrate_walk_rate`) in walk steps/s (`_walk_steps`); each card
+# family on its calibration batch (`_calibrate_device_rate`; "full" is
+# the fill writing its planes, "traceback" the card's traceback of those
+# planes to op strings in walk steps/s, "windowed" the windowed bound
+# with its batch prepared and staged).
 HOST_ADV_PER_S_PER_CORE = 209552623.54002115
 HOST_FULL_ADV_PER_S_PER_CORE = 86617657.19836313
+HOST_WINDOWED_ADV_PER_S_PER_CORE = 44302830.9521064
+WALK_STEPS_PER_S_PER_CORE = 36665215.79771295
 FILL_ADV_PER_S = 474432642.0590884
-FULL_ADV_PER_S = 437515480.7458165
+FULL_ADV_PER_S = 1001286665.1641207
+TRACEBACK_STEPS_PER_S = 76613770.58107783
 SYSBAND_ADV_PER_S = 4533423036.71788
 CSCAN_ADV_PER_S = 2239341011.5385923
+WINDOWED_ADV_PER_S = 56537415.93663478
 
 # The short-read cascade model (`prefer_staged_short`), on the 1,000 x 10
 # kbp slice: the host C cascade's bases/s per usable core (warm, every
@@ -197,7 +216,10 @@ NATIVE_CASCADE_BASES_S_PER_CORE = 2539210.8895836943
 STAGED_CASCADE_BASES_S = 5040472.873180071
 STAGED_BYTES_PER_BASE = 27.39676237455448
 
-FAMILIES = ("host", "host_full", "fill", "full", "sysband", "cscan")
+FAMILIES = ("host", "host_full", "host_windowed", "walk", "fill", "full",
+            "traceback", "sysband", "cscan", "windowed")
+# the families measured on the host's cores: their fallbacks are per core
+HOST_FAMILIES = ("host", "host_full", "host_windowed", "walk")
 
 # QUICKED_TPU_PIN_CARD=1 pins every batch to the card: nothing is routed,
 # so each entry runs the kernels it runs without a router (processes
@@ -209,10 +231,14 @@ _PROBE_TTL_S = 900.0        # link conditions drift with load
 _RATE_TTL_S = 7 * 86400.0
 _PROBE_BYTES = 8 << 20      # the readback probe's copy
 _HOST_CAL_LENGTH = 20_000
+# the windowed calibrations' pairs' length, window size and overlap: the
+# cascade's stage 1
+_WINDOWED_CAL = (50_000, 2, 1)
 _HOST_CAL_PATIENCE = 10
 _HOST_CAL_MAX_RUNS = 40
 
 _LINK_MBPS: list = []       # device-to-host MB/s, probed once
+_PINNED_MBPS: list = []     # the same into page-locked memory
 _DISPATCH_S: list = []      # seconds of a trivial launch, probed once
 _RATES: dict = {}           # family -> block advances/s, resolved once
 _CACHE_KEY: list = []
@@ -301,25 +327,47 @@ def _readback_seconds(nbytes: int) -> float:
     return time.perf_counter() - t0
 
 
-def _device_readback_mbps() -> float:
-    """Device-to-host bandwidth (MB/s), probed once: the fastest of three
-    8 MiB copies (one copy alone read 1,629-13,192 MB/s across calls on
-    the H100 host, chip_smoke phase 9)."""
+def _pinned_readback_seconds(nbytes: int) -> float:
+    """Seconds of one device-to-host copy of `nbytes` from the card into
+    page-locked memory, as `full_planes_to_host` copies the planes."""
+    buf = torch.zeros(nbytes, dtype=torch.uint8, device="cuda")
+    dst = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dst.copy_(buf)
+    return time.perf_counter() - t0
+
+
+def _link_mbps(memo: list, key: str, seconds) -> float:
+    """A link probe (MB/s), taken once: the fastest of three copies of
+    _PROBE_BYTES timed by `seconds` (one copy alone read 1,629-13,192 MB/s
+    across calls on the H100 host, chip_smoke phase 9)."""
     with _PROBE_LOCK:
-        if not _LINK_MBPS:
-            cached = _probe_cache_get("readback_mbps")
+        if not memo:
+            cached = _probe_cache_get(key)
             if cached is not None:
-                _LINK_MBPS.append(cached)
+                memo.append(cached)
                 return cached
-            dt = max(min(_readback_seconds(_PROBE_BYTES)
-                         for _ in range(3)), 1e-9)
-            _LINK_MBPS.append(_PROBE_BYTES / dt / 1e6)
+            dt = max(min(seconds(_PROBE_BYTES) for _ in range(3)), 1e-9)
+            memo.append(_PROBE_BYTES / dt / 1e6)
             # a sub-1 MB/s reading is a transient outage (another
             # process's transfers), not an operating point: this process
             # honors it, the cache does not keep it
-            if _LINK_MBPS[0] >= 1.0:
-                _probe_cache_put("readback_mbps", _LINK_MBPS[0])
-    return _LINK_MBPS[0]
+            if memo[0] >= 1.0:
+                _probe_cache_put(key, memo[0])
+    return memo[0]
+
+
+def _device_readback_mbps() -> float:
+    """Device-to-host bandwidth (MB/s) into pageable memory."""
+    return _link_mbps(_LINK_MBPS, "readback_mbps", _readback_seconds)
+
+
+def _planes_readback_mbps() -> float:
+    """Device-to-host bandwidth (MB/s) into page-locked memory: the rate
+    at which the plane-readback lane's planes cross."""
+    return _link_mbps(_PINNED_MBPS, "pinned_readback_mbps",
+                      _pinned_readback_seconds)
 
 
 def _device_dispatch_s() -> float:
@@ -357,10 +405,12 @@ def _cal_geom(family: str) -> tuple[int, int]:
     full set of fill lanes at 5 kbp (EBB 13); 32 pairs of 100 kbp for the
     systolic pass (EBB 236) and 32 of 40 kbp for the carry-scan pass (EBB
     96, a small deep batch), the long-read stage-3 batches' scale; for
-    the full fill and traceback, 128 pairs of 10 kbp, the 10 kbp slice's
-    chunk under FULL_FILL_BYTES_BUDGET."""
+    the full fill and the traceback, 128 pairs of 10 kbp, the 10 kbp
+    slice's chunk under FULL_FILL_BYTES_BUDGET."""
     return {"fill": (_fill_full_lanes(), 5_000), "full": (128, 10_000),
-            "sysband": (32, 100_000), "cscan": (32, 40_000)}[family]
+            "traceback": (128, 10_000),
+            "sysband": (32, 100_000), "cscan": (32, 40_000),
+            "windowed": (32, _WINDOWED_CAL[0])}[family]
 
 
 def _occupancy(family: str, n_live: int) -> float:
@@ -370,21 +420,26 @@ def _occupancy(family: str, n_live: int) -> float:
     card's width a pass takes one pair's chain whatever the count, and
     its rate grows with the pairs: linearly up to the calibration batch's
     pairs (`_cal_geom`), flat past them, where nothing was measured. The
-    full fill and traceback is priced flat: its wall follows its columns'
-    staging, raw frames and record expansion, not its pairs (phase 9 of
-    chip_smoke measures both chunks it prices)."""
-    if family == "full":
+    full fill and the traceback are priced flat: their walls follow the
+    columns' staging, raw frames and record expansion, not the pairs
+    (phases 9 and 10 of chip_smoke measure both chunks they price)."""
+    if family in ("full", "traceback"):
         return 1.0
     n_cal = _cal_geom(family)[0]
     return min(max(n_live, 1), n_cal) / n_cal
 
 
 def _rate_fallback(family: str) -> float:
-    if family in ("host", "host_full"):
-        return ((HOST_ADV_PER_S_PER_CORE if family == "host"
-                 else HOST_FULL_ADV_PER_S_PER_CORE) * native.usable_cores())
+    if family in HOST_FAMILIES:
+        return {"host": HOST_ADV_PER_S_PER_CORE,
+                "host_full": HOST_FULL_ADV_PER_S_PER_CORE,
+                "host_windowed": HOST_WINDOWED_ADV_PER_S_PER_CORE,
+                "walk": WALK_STEPS_PER_S_PER_CORE}[family] \
+            * native.usable_cores()
     return {"fill": FILL_ADV_PER_S, "full": FULL_ADV_PER_S,
-            "sysband": SYSBAND_ADV_PER_S, "cscan": CSCAN_ADV_PER_S}[family]
+            "traceback": TRACEBACK_STEPS_PER_S,
+            "sysband": SYSBAND_ADV_PER_S, "cscan": CSCAN_ADV_PER_S,
+            "windowed": WINDOWED_ADV_PER_S}[family]
 
 
 def _cal_pairs(n: int, length: int):
@@ -404,32 +459,15 @@ def _cal_batch(n: int, length: int, full: bool = False):
     return prepare_banded_batch(*_cal_pairs(n, length), full=full)
 
 
-def _calibrate_host_rate(full: bool = False):
-    """The whole host's rate of the host C score pass (`full`: the full
-    alignment, fill and traceback) on every usable core with force_scalar
-    off: the estimate prices the default host path, and a figure taken
-    under a thread cap or in scalar mode would mis-route later processes
-    for days. The batch holds four pairs a usable core, so that every
-    thread has work, of _HOST_CAL_LENGTH bp, long enough that the call's
-    fixed costs (thread spawn, the result scatter) stay small beside its
-    kernels. The rate is the advances over the fastest of the runs. The
-    first calls at this size can run several times slower than later
-    ones, for tens of calls, while fresh memory is first touched, so the
-    runs go on until the fastest has not improved by 5% for
-    _HOST_CAL_PATIENCE runs, or _HOST_CAL_MAX_RUNS runs: the cached rate
-    is the warm host's."""
-    if not native.available():
-        return None
-    pats, txts, cos = _cal_pairs(4 * native.usable_cores(),
-                                 _HOST_CAL_LENGTH)
-    b = prepare_banded_batch(pats, txts, cos, full=False)
-    if full:
-        def run():
-            run_banded_full_native(pats, txts, cos)
-    else:
-        def run():
-            run_banded_native(b)
-
+def _host_calibration(run) -> float:
+    """Seconds of the fastest of repeated `run()`s on every usable core
+    with force_scalar off: an estimate prices the default host path, and a
+    figure taken under a thread cap or in scalar mode would mis-route later
+    processes for days. The first calls at a size can run several times
+    slower than later ones, for tens of calls, while fresh memory is first
+    touched, so the runs go on until the fastest has not improved by 5% for
+    _HOST_CAL_PATIENCE runs, or _HOST_CAL_MAX_RUNS runs: the cached rate is
+    the warm host's."""
     prev = native.get_force_scalar()
     native.set_force_scalar(False)
     try:
@@ -446,7 +484,62 @@ def _calibrate_host_rate(full: bool = False):
                     break
     finally:
         native.set_force_scalar(prev)
-    return _deep_band_advances(b) / max(best, 1e-9)
+    return max(best, 1e-9)
+
+
+def _calibrate_host_rate(full: bool = False):
+    """The whole host's rate of the host C score pass (`full`: the full
+    alignment, fill and traceback), by `_host_calibration`. The batch
+    holds four pairs a usable core, so that every thread has work, of
+    _HOST_CAL_LENGTH bp, long enough that the call's fixed costs (thread
+    spawn, the result scatter) stay small beside its kernels."""
+    if not native.available():
+        return None
+    pats, txts, cos = _cal_pairs(4 * native.usable_cores(),
+                                 _HOST_CAL_LENGTH)
+    b = prepare_banded_batch(pats, txts, cos, full=False)
+    if full:
+        def run():
+            run_banded_full_native(pats, txts, cos)
+    else:
+        def run():
+            run_banded_native(b)
+    return _deep_band_advances(b) / _host_calibration(run)
+
+
+def _calibrate_host_windowed_rate():
+    """The whole host's rate of the host C windowed bound (a pair a
+    thread), in `windowed_advances`, by `_host_calibration` on four pairs
+    a usable core at the `_WINDOWED_CAL` geometry."""
+    from quicked_tpu_torch.aligner.cascade import _windowed_native_batch
+
+    if not native.available():
+        return None
+    length, ws, ovl = _WINDOWED_CAL
+    pats, txts, _ = _cal_pairs(4 * native.usable_cores(), length)
+    return windowed_advances(pats, txts, ws, ovl) / _host_calibration(
+        lambda: _windowed_native_batch(pats, txts, 40, ws, ovl))
+
+
+def _calibrate_walk_rate():
+    """The whole host's rate of the host C walk over read-back band planes
+    (`native.traceback_banded_batch`, a pair a thread), in `_walk_steps`,
+    by `_host_calibration`, on four pairs a usable core (at most the full
+    lane's calibration chunk) of the 10 kbp slice's chunk shape
+    (`_cal_geom("full")`), filled once on the card."""
+    if not native.available():
+        return None
+    n, length = _cal_geom("full")
+    pats, txts, cos = _cal_pairs(min(4 * native.usable_cores(), n), length)
+    b = prepare_banded_batch(pats, txts, cos, full=True)
+    planes = full_planes_to_host(
+        fill_staged(stage_banded(b, resolve_device("cuda"))))
+    praws = [p.encode() for p in pats]
+    traws = [t.encode() for t in txts]
+    prologs = [int(x) for x in b.prolog[:b.B]]
+    return _walk_steps(b) / _host_calibration(
+        lambda: native.traceback_banded_batch(planes, b.B, praws, traws,
+                                              prologs))
 
 
 def _timed(fn) -> float:
@@ -455,42 +548,57 @@ def _timed(fn) -> float:
     return time.perf_counter() - t0
 
 
+def _traceback_link_bytes(batch) -> int:
+    """Bytes the card's traceback moves over the link: the raw character
+    frames (a byte a pattern and a text column) up, its column records (an
+    int32 run and an int8 op a text column) back."""
+    return batch.B * batch.NB * W * (2 + 5)
+
+
 def _full_link_bytes(batch) -> int:
     """Bytes a full chunk moves over the link on the card: the staged
-    score inputs and the traceback's raw character frames (a byte a
-    pattern and a text column) up, its column records (an int32 run and
-    an int8 op a text column) back."""
-    cols = batch.NB * W
-    return batch.upload_bytes() + batch.B * cols * (2 + 5)
+    score inputs up, and the traceback's (`_traceback_link_bytes`)."""
+    return batch.upload_bytes() + _traceback_link_bytes(batch)
 
 
 def _calibrate_device_rate(family: str):
     """Time one real batch through the family's CUDA kernels as an entry
     runs it (the batch prepared and its planes built on the host, staged,
-    launched, the outputs read back; for "full" the fill with its planes
-    and the traceback to op strings) and invert the router's own estimate
-    (dispatch + link bytes + advances/rate = wall) for the rate, so the
-    rate is consistent with how it is consumed. Declines (None) when
-    dispatch and link take more than 70% of the timed run: the kernel
-    term would be noise."""
+    launched, the outputs read back; for "full" the fill writing its
+    planes, its scores read back) and invert the router's own estimate
+    (dispatch + link bytes + work/rate = wall) for the rate, so the rate
+    is consistent with how it is consumed. Declines (None) when dispatch
+    and link take more than 70% of the timed run: the kernel term would be
+    noise. "traceback" times the card's traceback of one filled chunk to
+    op strings (its raw frames staged, its records read back and expanded
+    inside each run), in walk steps; "windowed" times the windowed bound
+    at the `_WINDOWED_CAL` geometry, its batch prepared, staged and given
+    its pair-major copies inside each run."""
     dev = resolve_device("cuda")
+    if family == "windowed":
+        return _calibrate_windowed_rate(dev)
     pats, txts, cos = _cal_pairs(*_cal_geom(family))
-    full = family == "full"
+    full = family in ("full", "traceback")
     # sized here; each run prepares its own, as an entry's chunk does
     batch = prepare_banded_batch(pats, txts, cos, full=full)
-    if full:
+    work = _deep_band_advances(batch)
+    nbytes = batch.upload_bytes()
+    if family == "traceback":
         praws = [p.encode() for p in pats]
         traws = [t.encode() for t in txts]
-        nbytes = _full_link_bytes(batch)
+        out = fill_staged(stage_banded(batch, dev))
+        work = _walk_steps(batch)
+        nbytes = _traceback_link_bytes(batch)
 
         def run():
-            b = prepare_banded_batch(pats, txts, cos, full=True)
-            out = fill_staged(stage_banded(b, dev))
             traceback_ops(out["mat_pv"], out["mat_mv"], praws, traws,
-                          b.plen, b.tlen, b.prolog, b.B)
+                          batch.plen, batch.tlen, batch.prolog, batch.B)
+    elif full:
+        def run():
+            b = prepare_banded_batch(pats, txts, cos, full=True)
+            fill_staged(stage_banded(b, dev))["scores_by_k"].cpu()
     else:
         assert score_family(batch.B, _next_pow2(batch.EBB)) == family
-        nbytes = batch.upload_bytes()
 
         def run():
             b = prepare_banded_batch(pats, txts, cos, full=False)
@@ -503,11 +611,44 @@ def _calibrate_device_rate(family: str):
     kern = best - overhead
     if kern < 0.3 * best:
         return None
-    return _deep_band_advances(batch) / kern
+    return work / kern
+
+
+def _calibrate_windowed_rate(dev):
+    from quicked_tpu_torch.ops.windowed_cuda import (prepare_windowed_batch,
+                                                     run_windowed_score)
+
+    _, ws, ovl = _WINDOWED_CAL
+    pats, txts, _ = _cal_pairs(*_cal_geom("windowed"))
+
+    def run():
+        run_windowed_score(prepare_windowed_batch(pats, txts, window_size=ws),
+                           40, ws, ovl, device=dev)
+
+    run()                                   # build, warm
+    best = min(_timed(run) for _ in range(2))
+    overhead = _device_dispatch_s() + _windowed_link_bytes(
+        pats, txts, ws) / (_device_readback_mbps() * 1e6)
+    kern = best - overhead
+    if kern < 0.3 * best:
+        return None
+    return windowed_advances(pats, txts, ws, ovl) / kern
+
+
+def _calibrate(family: str):
+    """The first-use calibration of `family` (None: it declined)."""
+    if family in ("host", "host_full"):
+        return _calibrate_host_rate(full=family == "host_full")
+    if family == "host_windowed":
+        return _calibrate_host_windowed_rate()
+    if family == "walk":
+        return _calibrate_walk_rate()
+    return _calibrate_device_rate(family)
 
 
 def _kernel_rate(family: str) -> float:
-    """Block advances/s of a family (FAMILIES). Resolution order: process
+    """The rate of a family (FAMILIES): block advances/s, or walk steps/s
+    for "walk" and "traceback". Resolution order: process
     memo, probe cache (TTL 7 days), first-use calibration (persisted), the
     measured fallback constants. A calibration that raises is not
     caught."""
@@ -520,9 +661,7 @@ def _kernel_rate(family: str) -> float:
         if cached is not None and cached > 0:
             _RATES[family] = cached
             return cached
-        rate = (_calibrate_host_rate(full=family == "host_full")
-                if family.startswith("host")
-                else _calibrate_device_rate(family))
+        rate = _calibrate(family)
         if rate is not None and rate > 0:
             _probe_cache_put(f"adv_rate_{family}", float(rate))
         else:
@@ -537,6 +676,7 @@ def router_ready(dev: torch.device) -> None:
     their timers start; a no-op where nothing is routed."""
     if routed(dev) and native.available():
         _device_readback_mbps()
+        _planes_readback_mbps()
         _device_dispatch_s()
         for family in FAMILIES:
             _kernel_rate(family)
@@ -548,15 +688,15 @@ def _live(batch) -> int:
 
 
 def _host_rate(family: str, n_pairs: int) -> float:
-    """The host C rate of `family` ("host" or "host_full") at this
-    thread's thread count (`native.default_threads()`, capped by a
+    """The host C rate of a family of HOST_FAMILIES at this thread's
+    thread count (`native.default_threads()`, capped by a
     `thread_budget`). The score pass splits a pair over several threads
-    when it has fewer pairs than threads; the full alignment runs a pair
-    a thread (`run_banded_full_native`), so at most n_pairs of its
+    when it has fewer pairs than threads; the full alignment, the windowed
+    bound and the walk run a pair a thread, so at most n_pairs of their
     threads work."""
     cores = native.usable_cores()
     threads = min(native.default_threads(), cores)
-    if family == "host_full":
+    if family != "host":
         threads = min(threads, max(n_pairs, 1))
     return _kernel_rate(family) * threads / cores
 
@@ -568,6 +708,64 @@ def _deep_band_advances(batch) -> float:
     return float(np.sum(batch.tfinish[:n].astype(np.int64) * ebb))
 
 
+def _walk_steps(batch) -> float:
+    """Steps of the host walk over a full batch's planes: a walk moves
+    back one row or column a step, so a pair takes at most plen + tlen."""
+    n = _live(batch)
+    return float(np.sum(batch.plen[:n].astype(np.int64)
+                        + batch.tlen[:n].astype(np.int64)))
+
+
+def _plane_bytes(batch) -> int:
+    """Bytes of a full batch's band planes (Pv and Mv, 8 bytes a word)."""
+    return batch.NB * W * batch.EBB * batch.B * 16
+
+
+def windowed_advances(patterns, texts, ws: int, ovl: int) -> float:
+    """Block advances of a windowed bound over the pairs: 64 ws x ws a
+    window, over the fewest windows a pair can walk. A window moves each
+    cursor back by at most 64 (ws - ovl) and the walk ends when one passes
+    0, so a pair walks at least ceil(min(plen, tlen) / (64 (ws - ovl)))
+    windows (chip_smoke's `windowed_bound` counts them so)."""
+    stride = W * max(ws - ovl, 1)
+    short = np.minimum(np.fromiter(map(len, patterns), np.int64,
+                                   len(patterns)),
+                       np.fromiter(map(len, texts), np.int64, len(texts)))
+    return float(np.sum(-(-short // stride))) * W * ws * ws
+
+
+def _windowed_link_bytes(patterns, texts, ws: int) -> int:
+    """Bytes a windowed bucket stages on the card (`stage_windowed`): its
+    u64 PEQ words, the encoded and raw text and the raw pattern as int32
+    frames of at least a window, and three int32 lane vectors."""
+    cols = W * ws
+    plen = max(map(len, patterns), default=1)
+    tlen = max(map(len, texts), default=1)
+    kp = max(-(-plen // W), 1)
+    return len(patterns) * (kp * 5 * 8 + 2 * max(tlen, cols) * 4
+                            + max(plen, cols) * 4 + 3 * 4)
+
+
+def windowed_estimates(patterns, texts, ws: int, ovl: int):
+    """(host C, card) estimated seconds of a windowed bucket: its advances
+    over the host C rate for as many threads as it has pairs, against
+    dispatch + its staged bytes over the measured link + the advances at
+    the card's calibrated rate, priced flat in the pairs (the card lane's
+    wall follows its batch's preparation on the host, not its kernel)."""
+    adv = windowed_advances(patterns, texts, ws, ovl)
+    link = _device_readback_mbps() * 1e6
+    host = adv / _host_rate("host_windowed", len(patterns))
+    card = (_device_dispatch_s() + _windowed_link_bytes(patterns, texts, ws)
+            / link + adv / _kernel_rate("windowed"))
+    return host, card
+
+
+def prefer_host_windowed(patterns, texts, ws: int, ovl: int) -> bool:
+    """The windowed bucket's venue: True for the host C kernel."""
+    host, card = windowed_estimates(patterns, texts, ws, ovl)
+    return host < card
+
+
 def _score_device_est_s(batch, adv: float, kernel_adv_per_s: float) -> float:
     """Estimated wall of a score pass on the card: dispatch latency + the
     staged inputs over the measured link + kernel time."""
@@ -576,13 +774,43 @@ def _score_device_est_s(batch, adv: float, kernel_adv_per_s: float) -> float:
             + adv / kernel_adv_per_s)
 
 
-def _full_device_est_s(batch, adv: float) -> float:
-    """Estimated wall of a full chunk on the card: dispatch latency + its
-    link bytes (`_full_link_bytes`) over the measured link + the full
-    fill and traceback at the calibrated rate."""
-    link = _device_readback_mbps() * 1e6
-    return (_device_dispatch_s() + _full_link_bytes(batch) / link
+def _full_fill_est_s(batch, adv: float) -> float:
+    """Estimated wall of a full chunk's fill on the card: dispatch latency
+    + its staged inputs over the measured link + the fill at the `full`
+    rate. Both card venues of a full chunk start with it."""
+    return (_device_dispatch_s()
+            + batch.upload_bytes() / (_device_readback_mbps() * 1e6)
             + adv / (_kernel_rate("full") * _occupancy("full", _live(batch))))
+
+
+def _full_device_est_s(batch, adv: float) -> float:
+    """Estimated wall of a full chunk on the card's fill and traceback:
+    the fill (`_full_fill_est_s`) + the traceback's link bytes over the
+    measured link + its walk steps at the `traceback` rate."""
+    return (_full_fill_est_s(batch, adv)
+            + _traceback_link_bytes(batch) / (_device_readback_mbps() * 1e6)
+            + _walk_steps(batch) / (_kernel_rate("traceback")
+                                    * _occupancy("traceback", _live(batch))))
+
+
+def _readback_est_s(batch, adv: float) -> float:
+    """Estimated wall of a full chunk on the plane-readback lane: the fill
+    (`_full_fill_est_s`) + its planes over the page-locked link
+    (`_planes_readback_mbps`) + the host C walk at the `walk` rate for as
+    many threads as it has pairs. It wins over `_full_device_est_s` where
+    the card's traceback costs more than the planes' readback and the
+    host walk."""
+    return (_full_fill_est_s(batch, adv)
+            + _plane_bytes(batch) / (_planes_readback_mbps() * 1e6)
+            + _walk_steps(batch) / _host_rate("walk", _live(batch)))
+
+
+def full_estimates(batch) -> dict:
+    """Estimated seconds of a full chunk on each of its three venues."""
+    adv = _deep_band_advances(batch)
+    return {"full_host_c": adv / _host_rate("host_full", _live(batch)),
+            "full_fill_tb": _full_device_est_s(batch, adv),
+            "full_fill_readback": _readback_est_s(batch, adv)}
 
 
 def _prefer_host_deep(batch, sysband: bool) -> bool:
@@ -614,15 +842,15 @@ def _prefer_host(batch, family: str) -> bool:
     return _prefer_host_deep(batch, family == "sysband")
 
 
-def _prefer_host_full(batch) -> bool:
-    """Full-chunk venue: True when the host C fill and traceback's
-    estimate (`run_banded_full_native`, a pair a thread) undercuts the
-    card's (`_full_device_est_s`). Both sides are calibrated on this
-    host, and the advance count is the same on both, so its definition
-    cancels."""
-    adv = _deep_band_advances(batch)
-    return (adv / _host_rate("host_full", _live(batch))
-            < _full_device_est_s(batch, adv))
+def _full_venue(batch) -> str:
+    """Full-chunk venue, the least of `full_estimates`: "full_host_c"
+    (the host C fill and traceback, `run_banded_full_native`, a pair a
+    thread), "full_fill_tb" (the card's fill and traceback) or
+    "full_fill_readback" (the card's fill, its planes read back, the host C
+    walk). Every rate is calibrated on this host, and the advance and walk
+    step counts are the same on each side, so their definitions cancel."""
+    est = full_estimates(batch)
+    return min(est, key=est.get)
 
 
 def prefer_staged_short(total_bases: int) -> bool:
@@ -649,8 +877,9 @@ def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
 
     On a card the router picks each chunk's venue before any launch,
     whichever estimate wins: a full chunk runs the card's fill and
-    traceback or the host C fill and traceback (`_prefer_host_full`); a
-    score chunk runs its `score_family` kernel or the host C score pass
+    traceback, the card's fill with the host C walk of its read-back
+    planes, or the host C fill and traceback (`_full_venue`); a score
+    chunk runs its `score_family` kernel or the host C score pass
     (`_prefer_host`). The port's chunks have no lane floor, so no
     chunk's padding can exceed FULL_FILL_BYTES_BUDGET and no chunk needs
     the JAX package's too-deep host lane (batch.py:755-770); a pair whose
@@ -690,13 +919,27 @@ def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
                 scores[sub] = extract_final_scores(
                     batch, run_banded_native(batch)["scores_by_k"])
                 continue
-            if route and not only_score and _prefer_host_full(batch):
-                _venue("full_host_c")
+            if route and not only_score:
+                venue = _full_venue(batch)
+            if venue == "full_host_c":
+                _venue(venue)
                 sc, ops = run_banded_full_native(
                     [patterns[i] for i in sub], [texts[i] for i in sub],
                     [cutoffs[i] for i in sub],
                     raws=([raws[0][i] for i in sub],
                           [raws[1][i] for i in sub]) if raws else None)
+                scores[sub] = sc
+                for j, i in enumerate(sub):
+                    ops_out[i] = ops[j]
+                continue
+            if venue == "full_fill_readback":
+                _venue(venue)
+                sc, ops = _run_full_readback(
+                    batch, dev,
+                    [raws[0][i] if raws else _raw_bytes(patterns[i])
+                     for i in sub],
+                    [raws[1][i] if raws else _raw_bytes(texts[i])
+                     for i in sub])
                 scores[sub] = sc
                 for j, i in enumerate(sub):
                     ops_out[i] = ops[j]
@@ -731,6 +974,23 @@ def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
                     ops_out[i] = ops[j]
             del parts   # free this chunk's planes before the next one
     return scores, ops_out
+
+
+def _run_full_readback(batch, dev, praws, traws):
+    """The plane-readback lane of a full chunk: the full fill on `dev`,
+    its four u32 planes read back (`full_planes_to_host`), every pair
+    walked by the host C runtime in one call
+    (`native.traceback_banded_batch`, a pair a thread). Returns (scores,
+    op strings)."""
+    out = fill_staged(stage_banded(batch, dev))
+    sc = extract_final_scores(batch, out["scores_by_k"].cpu().numpy())
+    planes = full_planes_to_host(out)
+    del out
+    n = len(praws)
+    ops = native.traceback_banded_batch(
+        planes, batch.B, praws, traws,
+        [int(x) for x in batch.prolog[:n]])
+    return sc[:n], ops
 
 
 @dataclasses.dataclass
@@ -925,7 +1185,8 @@ def align_batch_full(pairs, params: QuickedParams | None = None,
     txts = [pairs[i][1] for i in live]
 
     algo = params.algo
-    if params.use_kernels and algo != QuickedAlgo.WINDOWED:
+    if params.use_kernels and (algo != QuickedAlgo.WINDOWED
+                               or params.only_score):
         router_ready(dev)
     if not params.use_kernels:
         # the exact numpy semantic model, per pair

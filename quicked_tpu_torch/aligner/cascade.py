@@ -20,14 +20,22 @@ threads inside) unless the staged card lane's estimate beats it
 rates measured on the card host); longer pairs take the staged lane; a
 host C pair whose stage-4 band is over the Hirschberg budget comes back
 with its proven bound and finishes in the port's `hirschberg_batch` on
-the card. With device="cpu", or QUICKED_TPU_PIN_CARD=1, every pair takes
-the staged lane (on the kernels' plain versions for the CPU). Under a device mesh (`aligner.batch.ACTIVE_MESH`) every pair
-takes the staged lane, the windowed bounds and the banded kernels sharded
-over its devices; the windowed full mode runs on its first.
+the card. In the staged lane each windowed bucket (stages 1-2) runs the
+card's kernel or, when its estimate wins, the host C windowed kernel a
+pair a thread (`_windowed_native_batch`, `batch.prefer_host_windowed`),
+as the JAX package sends buckets of WINDOWED_CPU_MIN_LEN bp and more to
+that kernel on an accelerator host (cascade.py:117-132). With
+device="cpu", or QUICKED_TPU_PIN_CARD=1, every pair takes the staged lane
+and every bucket the card's kernel (its plain version for the CPU).
+Under a device mesh (`aligner.batch.ACTIVE_MESH`) every pair takes the
+staged lane, the windowed bounds and the banded kernels sharded over its
+devices; the windowed full mode runs on its first.
 
-Not carried over: the JAX package's CPU-backend windowed buckets
-(`_windowed_device`, `WINDOWED_CPU_MIN_LEN`), which run on XLA's CPU
-backend; the port has no counterpart of it.
+Not carried over: the JAX package's buckets on XLA's CPU backend
+(`_windowed_device`): where no host C kernel serves (window_size > 16,
+no C compiler) and for the windowed full mode, it runs a long bucket's
+XLA program on the host's CPU. Its only counterpart here is the kernels'
+plain version, which no path with a card runs.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ import dataclasses
 
 import numpy as np
 
-from quicked_tpu_torch import native
+from quicked_tpu_torch import dna, native
 from quicked_tpu_torch.aligner import batch as ab
 from quicked_tpu_torch.aligner.batch import (_next_pow2, active_mesh,
                                               banded_align_batch)
@@ -46,6 +54,7 @@ from quicked_tpu_torch.ops.windowed_cuda import (prepare_windowed_batch,
                                                  run_windowed_full,
                                                  run_windowed_score)
 from quicked_tpu_torch.params import QuickedParams, QuickedStatus
+from quicked_tpu_torch.utils.host_threads import map_lanes
 from quicked_tpu_torch.utils.profiler import PhaseTimers
 
 W = 64
@@ -58,13 +67,47 @@ class CascadeResult:
     cigar: list
 
 
+def _raw(s, enc) -> bytes:
+    """The raw bytes the host C kernels compare (the M-vs-X test): the
+    ascii characters, or the encoded array itself for pre-encoded
+    input."""
+    if isinstance(s, np.ndarray):
+        return np.asarray(enc, dtype=np.uint8).tobytes()
+    return s.encode("ascii", "replace")
+
+
+def _windowed_native_batch(patterns, texts, hew_threshold, window_size,
+                           overlap_size):
+    """The host C windowed bound (`native.windowed_score`), a pair a
+    thread (`map_lanes`). Returns (score, hew) int64 arrays."""
+    n = len(patterns)
+    scores = np.zeros(n, dtype=np.int64)
+    hews = np.zeros(n, dtype=np.int64)
+
+    def one(i):
+        p, t = patterns[i], texts[i]
+        pe = p if isinstance(p, np.ndarray) else dna.encode(p)
+        te = t if isinstance(t, np.ndarray) else dna.encode(t)
+        scores[i], hews[i] = native.windowed_score(
+            pe, _raw(p, pe), te, _raw(t, te), window_size, overlap_size,
+            hew_threshold)
+
+    map_lanes(one, n)
+    return scores, hews
+
+
 def windowed_score_batch(patterns, texts, hew_threshold: int,
                          window_size: int, overlap_size: int,
                          device="cuda"):
     """Bucketed windowed score bound. Returns (score, hew) int64 arrays.
-    Under a mesh each bucket's lanes are sharded over its devices."""
+    Where the router decides (a card, no mesh, not pinned) a bucket with
+    window_size <= 16 runs the host C kernel when its estimate beats the
+    card's (`batch.prefer_host_windowed`); every other bucket runs the
+    card's kernel. Under a mesh each bucket's lanes are sharded over its
+    devices."""
     dev = resolve_device(device)
     mesh = active_mesh(dev)
+    route = ab.routed(dev) and native.available() and window_size <= 16
     n = len(patterns)
     scores = np.zeros(n, dtype=np.int64)
     hews = np.zeros(n, dtype=np.int64)
@@ -74,16 +117,24 @@ def windowed_score_batch(patterns, texts, hew_threshold: int,
         key = _next_pow2(max(len(patterns[i]), len(texts[i]), cols))
         by_key.setdefault(key, []).append(i)
     for idxs in by_key.values():
-        batch = prepare_windowed_batch(
-            [patterns[i] for i in idxs], [texts[i] for i in idxs],
-            window_size=window_size)
-        if mesh is None:
-            sc, hw = run_windowed_score(batch, hew_threshold, window_size,
-                                        overlap_size, device=dev)
+        pats = [patterns[i] for i in idxs]
+        txts = [texts[i] for i in idxs]
+        if route and ab.prefer_host_windowed(pats, txts, window_size,
+                                             overlap_size):
+            ab._venue("windowed_host_c")
+            sc, hw = _windowed_native_batch(pats, txts, hew_threshold,
+                                            window_size, overlap_size)
+        elif mesh is None:
+            ab._venue("windowed")
+            sc, hw = run_windowed_score(
+                prepare_windowed_batch(pats, txts, window_size=window_size),
+                hew_threshold, window_size, overlap_size, device=dev)
         else:
             from quicked_tpu_torch.parallel.mesh import run_windowed_sharded
-            sc, hw = run_windowed_sharded(batch, hew_threshold, window_size,
-                                          overlap_size, mesh)
+            ab._venue("mesh_windowed")
+            sc, hw = run_windowed_sharded(
+                prepare_windowed_batch(pats, txts, window_size=window_size),
+                hew_threshold, window_size, overlap_size, mesh)
         scores[idxs] = sc
         hews[idxs] = hw
     return scores, hews
@@ -93,9 +144,12 @@ def windowed_full_batch(patterns, texts, window_size: int,
                         overlap_size: int, device="cuda") -> list:
     """Bucketed full-CIGAR windowed alignment; returns op strings in input
     order. The counterpart of quicked_tpu/aligner/cascade.py
-    `windowed_full_batch` without its host C branch: every pair goes to
-    the card's kernel. Like it, it does not shard: under a mesh it runs on
-    the mesh's first device."""
+    `windowed_full_batch`, on the card only: on an accelerator the JAX
+    package runs this mode on its device kernel, or a long bucket on XLA's
+    CPU backend, never on the host C kernel (which serves only its CPU
+    platform), and the port's counterpart of the CPU backend, the plain
+    version, runs on no path with a card. Like it, it does not shard:
+    under a mesh it runs on the mesh's first device."""
     dev = resolve_device(device)
     mesh = active_mesh(dev)
     if mesh is not None:
@@ -216,7 +270,7 @@ def _cascade_with_native_lane(pairs, params: QuickedParams, timers, fast,
         # every pair aligned in C: return the packed results as they are
         # (run_quicked returns QUICKED_WIP on success, quicked.c:305)
         return CascadeResult(status=[QuickedStatus.QUICKED_WIP] * n,
-                             score=sc, cigar=[x or None for x in rles])
+                             score=sc, cigar=rles.with_empty_as_none())
     statuses: list = [None] * n
     scores = np.full(n, -1, dtype=np.int64)
     cigars: list = [None] * n

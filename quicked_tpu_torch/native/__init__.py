@@ -1,14 +1,32 @@
 """Host C runtime of the port: ctypes bindings over libquicked_host.
 
-The port's copy of quicked_tpu/native/__init__.py, carrying only the
-entries the port and `chip_smoke.py` use: the record expansion of the
-on-device traceback (`expand_colruns`), the CIGAR helpers of `cigar.Cigar`
-(`cigar_score_edit`, `cigar_sprint`, `cigar_check`), the host C lanes the
-venue router sends batches to (`quicked_batch`, `banded_score_batch`,
-`banded_align_full`), the host C cascade's Hirschberg and windowed modes
-(`hirschberg`, `windowed_score`, `windowed_full`), and the
-process-wide controls of the host lanes (`thread_budget`,
-`default_threads`, `set_force_scalar`, `simd_pass_count`).
+The port's copy of quicked_tpu/native/__init__.py, every entry of it: the
+record expansion of the on-device traceback (`expand_colruns`), the host
+walk of band planes read back from the full fill (`traceback_banded`,
+`traceback_banded_batch`), the CIGAR helpers (`cigar_score_edit`,
+`cigar_sprint`, `cigar_check`, `cigar_sam`), the banded, windowed and
+Hirschberg kernels (`banded_score`, `banded_score_batch`,
+`banded_align_full`, `windowed_score`, `windowed_full`, `hirschberg`),
+the one-call cascade (`quicked_batch`, pipelined in chunks and returning
+a `LazyOpsList`; `align_one` for one pair), the `.seq` parser
+(`read_seq_batch`), `encode_dna`, and the process-wide controls of the
+host lanes (`thread_budget`, `default_threads`, `set_force_scalar`,
+`simd_pass_count`).
+
+Heap settings. The JAX package raises glibc's mmap and trim thresholds at
+load (`_retain_large_allocations`) and touches 128 MiB of heap once before
+the first large batch (`_ensure_prefault`), so that the batch lanes'
+scratch buffers are reused warm instead of being faulted in afresh by
+their worker threads. Both are settings of the whole process, and torch's
+host tensors come from the same glibc heap, so here both are off unless
+MALLOC_RETAIN is set: on the H100 card's host a fresh process's first
+cascade call was as close to its warm calls without them as with them
+(chip_smoke phase 10(d), PERF.md). Likewise `quicked_batch` runs one call
+unless a batch exceeds 2 x BATCH_CHUNK_BASES bases: its pipelined chunks
+saved no peak RSS there and mostly ran slower than one call. The JAX package's switches for these
+(QUICKED_TPU_MALLOC_RETAIN, QUICKED_TPU_MALLOC_PREFAULT_MB,
+QUICKED_TPU_BATCH_CHUNK_BASES) are the module constants MALLOC_RETAIN,
+MALLOC_PREFAULT_MB and BATCH_CHUNK_BASES here.
 
 `src/quicked_host.c` is a copy of quicked_tpu/native/src/quicked_host.c.
 The shared library is built at first use with the system C compiler into
@@ -41,9 +59,19 @@ _lib = None
 _tried = False
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
+_u32p = ctypes.POINTER(ctypes.c_uint32)
 _i64 = ctypes.c_int64
 _i64p = ctypes.POINTER(ctypes.c_int64)
 _u64p = ctypes.POINTER(ctypes.c_uint64)
+
+# Retain large heap allocations and pre-fault the heap (off: see the
+# module docstring); the megabytes touched once before the first large
+# batch when they are on; the bases of a `quicked_batch` chunk, past twice
+# which a batch is pipelined (the JAX package's is 8 MiB; here only a
+# batch whose packed input alone is gigabytes is chunked).
+MALLOC_RETAIN = False
+MALLOC_PREFAULT_MB = 128
+BATCH_CHUNK_BASES = 1 << 30
 
 
 # tried in order: -march=native roughly doubles the SIMD banded kernel;
@@ -142,12 +170,59 @@ def _build(path: str) -> bool:
     return False
 
 
+def _retain_large_allocations():
+    """Raise glibc's mmap and trim thresholds to 1 GiB, so that the batch
+    lanes' large scratch buffers (packed sequences, op buffers, RLE text)
+    are reused from the heap instead of unmapped on every free: pages
+    touched for the first time fault in slowly, and erratically, on a
+    virtual machine, and retained pages make warm batch calls steady.
+    Process-wide; a no-op without glibc's mallopt or when MALLOC_RETAIN is
+    False, the default."""
+    if not MALLOC_RETAIN:
+        return
+    try:
+        libc = ctypes.CDLL(None)
+        M_TRIM_THRESHOLD, M_MMAP_THRESHOLD = -1, -3
+        libc.mallopt(M_MMAP_THRESHOLD, 1 << 30)
+        libc.mallopt(M_TRIM_THRESHOLD, 1 << 30)
+    except (OSError, AttributeError):
+        pass
+
+
+_prefaulted = False
+
+
+def _ensure_prefault():
+    """Touch MALLOC_PREFAULT_MB of heap once, in order, from this thread:
+    the batch workers faulting the same pages later, in random order and
+    all at once, contend on the address space's lock, and that was the
+    largest cost of a cold large batch in the JAX package. Called before
+    the first large batch, so small calls never pay it; a no-op unless
+    MALLOC_RETAIN is set."""
+    global _prefaulted
+    if _prefaulted:
+        return
+    _prefaulted = True
+    if not MALLOC_RETAIN or MALLOC_PREFAULT_MB <= 0:
+        return
+    try:
+        libc = ctypes.CDLL(None)
+        libc.malloc.restype = ctypes.c_void_p
+        p = libc.malloc(MALLOC_PREFAULT_MB << 20)
+        if p:
+            ctypes.memset(p, 0, MALLOC_PREFAULT_MB << 20)
+            libc.free(ctypes.c_void_p(p))
+    except (OSError, AttributeError):
+        pass
+
+
 def _load():
     global _lib, _tried
     with _lock:
         if _lib is not None or _tried:
             return _lib
         _tried = True
+        _retain_large_allocations()
         path = library_path()
         if not os.path.exists(path) and not _build(path):
             print("quicked_tpu_torch: host C library unavailable (no C "
@@ -157,6 +232,33 @@ def _load():
             lib = ctypes.CDLL(path)
         except OSError:
             return None
+        lib.qh_encode_dna.argtypes = [_u8p, _i64, _u8p]
+        lib.qh_traceback_banded.restype = _i64
+        lib.qh_traceback_banded.argtypes = [
+            _u32p, _u32p, _u32p, _u32p, _i64, _i64, _i64,
+            _u8p, _i64, _u8p, _i64, _i64, ctypes.c_char_p]
+        lib.qh_traceback_banded_batch.restype = _i64
+        lib.qh_traceback_banded_batch.argtypes = [
+            _u32p, _u32p, _u32p, _u32p, _i64, _i64, _i64,
+            _u8p, _i64p, _i64p, _u8p, _i64p, _i64p,
+            _i64p, _i64, ctypes.c_char_p, _i64p, _i64p, _i64]
+        lib.qh_cigar_sam.restype = _i64
+        lib.qh_cigar_sam.argtypes = [ctypes.c_char_p, _i64, _u32p]
+        # the buffer is a c_void_p, so that a caller can pass an address
+        # into a bytes object without slicing it
+        lib.qh_read_seq_batch.restype = _i64
+        lib.qh_read_seq_batch.argtypes = [
+            ctypes.c_void_p, _i64, _i64, ctypes.c_char_p, _i64,
+            _i64p, _i64p, _i64p]
+        lib.qh_banded_score_mt.restype = _i64
+        lib.qh_banded_score_mt.argtypes = [
+            _u8p, _i64, _u8p, _i64, _i64, _i64,
+            _u64p, _u64p, _i64p, _i64p, _i64p, _i64p, _i64]
+        lib.qh_align.restype = _i64
+        lib.qh_align.argtypes = [
+            _i64, _u8p, _i64, _u8p, _i64,
+            _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _i64,
+            _i64p, ctypes.c_char_p, _i64p]
         lib.qh_cigar_score_edit.restype = _i64
         lib.qh_cigar_score_edit.argtypes = [ctypes.c_char_p, _i64]
         lib.qh_cigar_check.restype = ctypes.c_int
@@ -217,6 +319,80 @@ def available() -> bool:
 
 def _u8bytes(s: bytes):
     return ctypes.cast(ctypes.c_char_p(s), _u8p)
+
+
+def _u32arr(a: np.ndarray):
+    assert a.dtype == np.uint32 and a.flags.c_contiguous
+    return a.ctypes.data_as(_u32p)
+
+
+def traceback_banded(mat_pv_lo, mat_pv_hi, mat_mv_lo, mat_mv_hi,
+                     lane: int, pattern_raw: bytes, text_raw: bytes,
+                     prolog: int) -> str:
+    """Traceback one lane of the batched (T, EBB, B) u32 band planes."""
+    lib = _load()
+    T, ebb, nlanes = mat_pv_lo.shape
+    plen, tlen = len(pattern_raw), len(text_raw)
+    out = ctypes.create_string_buffer(plen + tlen + 1)
+    n = lib.qh_traceback_banded(
+        _u32arr(mat_pv_lo), _u32arr(mat_pv_hi),
+        _u32arr(mat_mv_lo), _u32arr(mat_mv_hi),
+        ebb, nlanes, lane,
+        _u8bytes(pattern_raw), plen, _u8bytes(text_raw), tlen,
+        prolog, out)
+    return out.raw[:n].decode("ascii")
+
+
+def traceback_banded_batch(mats_tiled, lanes: int, praws: list,
+                           traws: list, prologs) -> list:
+    """Traceback EVERY pair of a lane-tiled plane set in one native call
+    (pthread pool inside): the four u32 planes are (P, T, EBB, lanes), and
+    pair i walks tile i // lanes, lane i % lanes. praws/traws are the
+    pairs' raw byte strings (str is encoded with dna-text semantics:
+    non-ASCII to the replacement byte); returns op strings in order."""
+    lib = _load()
+    pv_lo, pv_hi, mv_lo, mv_hi = mats_tiled
+    P, T, ebb, nlanes = pv_lo.shape
+    assert nlanes == lanes
+    praws = [p.encode("ascii", "replace") if isinstance(p, str) else p
+             for p in praws]
+    traws = [t.encode("ascii", "replace") if isinstance(t, str) else t
+             for t in traws]
+    n = len(praws)
+    pat_len = np.fromiter((len(p) for p in praws), np.int64, n)
+    txt_len = np.fromiter((len(t) for t in traws), np.int64, n)
+    pat_off = np.zeros(n, np.int64)
+    np.cumsum(pat_len[:-1], out=pat_off[1:])
+    txt_off = np.zeros(n, np.int64)
+    np.cumsum(txt_len[:-1], out=txt_off[1:])
+    caps = pat_len + txt_len
+    ops_off = np.zeros(n, np.int64)
+    np.cumsum(caps[:-1], out=ops_off[1:])
+    pat_blob = b"".join(praws)
+    txt_blob = b"".join(traws)
+    ops_blob = ctypes.create_string_buffer(int(caps.sum()) + 1)
+    ops_len = np.zeros(n, np.int64)
+    prolog_arr = np.asarray(prologs, dtype=np.int64)
+
+    def i64p(a):
+        return a.ctypes.data_as(_i64p)
+
+    _ensure_prefault()
+    planes = [np.ascontiguousarray(a).reshape(P * T, ebb, nlanes)
+              for a in (pv_lo, pv_hi, mv_lo, mv_hi)]
+    rc = lib.qh_traceback_banded_batch(
+        _u32arr(planes[0][0]), _u32arr(planes[1][0]),
+        _u32arr(planes[2][0]), _u32arr(planes[3][0]),
+        T * ebb * nlanes, ebb, nlanes,
+        _u8bytes(pat_blob), i64p(pat_off), i64p(pat_len),
+        _u8bytes(txt_blob), i64p(txt_off), i64p(txt_len),
+        i64p(prolog_arr), n,
+        ops_blob, i64p(ops_off), i64p(ops_len),
+        default_threads())
+    assert rc == 0, rc
+    raw = ops_blob.raw
+    return [raw[int(ops_off[i]):int(ops_off[i]) + int(ops_len[i])]
+            .decode("ascii") for i in range(n)]
 
 
 def expand_colruns(runs_bt: np.ndarray, opcs_bt: np.ndarray,
@@ -314,6 +490,65 @@ def cigar_sprint(ops: str, print_matches: bool) -> str:
     return out.raw[:n].decode("ascii")
 
 
+def cigar_sam(ops: str) -> np.ndarray:
+    """The SAM CIGAR of an op string as packed u32 (length << 4 | op)."""
+    lib = _load()
+    b = ops.encode("ascii")
+    out = np.empty(max(len(b), 1), dtype=np.uint32)
+    n = lib.qh_cigar_sam(b, len(b), _u32arr(out))
+    return out[:n].copy()
+
+
+def banded_score(pattern_enc: np.ndarray, text_enc: np.ndarray,
+                 cutoff_score: int, text_len: int, text_finish: int,
+                 want_state: bool = False, n_threads: int = 1):
+    """Host-native BandEd score-only for one pair. Returns the score, or
+    with want_state a dict of the lane's state as the fill outputs it (pv/mv
+    u64 band words, first/last, scores by shifted row). n_threads > 1 runs
+    the bit-exact threaded wavefront (row strips) inside the pair's
+    band."""
+    lib = _load()
+    p = np.ascontiguousarray(pattern_enc, dtype=np.uint8)
+    t = np.ascontiguousarray(text_enc, dtype=np.uint8)
+    if not want_state:
+        return int(lib.qh_banded_score_mt(
+            p.ctypes.data_as(_u8p), len(p), t.ctypes.data_as(_u8p),
+            text_finish, text_len, cutoff_score,
+            None, None, None, None, None, None, int(n_threads)))
+    # conservative capacities (see qh_banded_score)
+    k_end = abs(text_len - len(p)) + 1
+    cutoff = max(k_end, cutoff_score, 65)
+    ebb_cap = cutoff // 64 + 2
+    diff = len(p) - text_len
+    rel = -(-(cutoff - abs(diff)) // 2)
+    prolog = -(-rel // 64) if diff >= 0 else -(-(rel - diff) // 64)
+    nb_total = max(-(-text_finish // 64), 1)
+    n_rows = prolog + nb_total + ebb_cap + 2
+    # the C kernel extends its rows to cover the pattern's final block
+    # (init-valued) when text_finish << plen; size the buffer to match
+    plen = len(p)
+    fb = plen // 64 if plen % 64 else max(plen - 1, 0) // 64
+    n_rows = max(n_rows, fb + prolog + 1)
+    pv = np.empty(ebb_cap, dtype=np.uint64)
+    mv = np.empty(ebb_cap, dtype=np.uint64)
+    # pre-filled with the kernel's own init formula (r - prolog + 1) * 64:
+    # ebb_cap can exceed its row count by one, and an np.empty tail row
+    # would leak into the scores
+    scores = ((np.arange(n_rows, dtype=np.int64) - prolog + 1) * 64)
+    first = ctypes.c_int64()
+    last = ctypes.c_int64()
+    ebb = ctypes.c_int64()
+    score = int(lib.qh_banded_score_mt(
+        p.ctypes.data_as(_u8p), len(p), t.ctypes.data_as(_u8p),
+        text_finish, text_len, cutoff_score,
+        pv.ctypes.data_as(_u64p), mv.ctypes.data_as(_u64p),
+        ctypes.byref(first), ctypes.byref(last),
+        scores.ctypes.data_as(_i64p), ctypes.byref(ebb), int(n_threads)))
+    return dict(score=score, pv=pv[:ebb.value], mv=mv[:ebb.value],
+                first=int(first.value), last=int(last.value),
+                scores=scores, prolog=prolog, ebb=int(ebb.value))
+
+
 def banded_score_batch(enc_patterns, enc_texts, cutoffs, tfinishes,
                        want_state: bool = False,
                        n_threads: int | None = None):
@@ -330,6 +565,8 @@ def banded_score_batch(enc_patterns, enc_texts, cutoffs, tfinishes,
     enc_list = [np.ascontiguousarray(e, dtype=np.uint8)
                 for pair in zip(enc_patterns, enc_texts) for e in pair]
     lens = np.fromiter(map(len, enc_list), np.int64, 2 * n)
+    if int(lens.sum()) > 1 << 18:
+        _ensure_prefault()
     offs = np.zeros(2 * n, dtype=np.int64)
     np.cumsum(lens[:-1], out=offs[1:])
     buf = b"".join(e.tobytes() for e in enc_list)
@@ -422,17 +659,173 @@ def windowed_full(pattern_enc: np.ndarray, pattern_raw: bytes,
     return ops.raw[:n].decode("ascii")
 
 
+class LazyOpsList:
+    """Per-pair op or RLE strings decoded lazily from the packed C output
+    buffers: building a str a pair for a 100k-pair batch costs more than
+    the C alignment of short reads, and a caller that never reads the ops
+    (score-only, a benchmark row) skips it. The first access decodes every
+    element (one comprehension beats 100k __getitem__ calls); from then on
+    it behaves as a plain list. An element is the str for status 0 ("" for
+    an empty op string) and None otherwise."""
+
+    __slots__ = ("_segs", "_list", "_n", "_empty_as_none")
+
+    def __init__(self, segs, empty_as_none=False):
+        # segs: list of (ops uint8 array, offsets, lengths, status)
+        self._segs = segs
+        self._n = sum(len(s[3]) for s in segs)
+        self._list = None
+        self._empty_as_none = empty_as_none
+
+    def _materialize(self):
+        if self._list is None:
+            out = []
+            for arr, off, ln, status in self._segs:
+                raw = arr.tobytes()
+                if self._empty_as_none:
+                    out.extend(
+                        (raw[o:o + k].decode("ascii") if k else None)
+                        if s == 0 else None
+                        for o, k, s in zip(off.tolist(), ln.tolist(),
+                                           status.tolist()))
+                else:
+                    out.extend(
+                        raw[o:o + k].decode("ascii") if s == 0 else None
+                        for o, k, s in zip(off.tolist(), ln.tolist(),
+                                           status.tolist()))
+            self._list = out
+            self._segs = None
+        return self._list
+
+    def with_empty_as_none(self):
+        """The view with the cascade's `x if x else None` normalization."""
+        if self._list is not None:
+            return [x if x else None for x in self._list]
+        return LazyOpsList(self._segs, empty_as_none=True)
+
+    def __len__(self):
+        return self._n
+
+    def __getitem__(self, i):
+        return self._materialize()[i]
+
+    def __iter__(self):
+        return iter(self._materialize())
+
+    def __eq__(self, other):
+        if isinstance(other, LazyOpsList):
+            other = other._materialize()
+        return self._materialize() == other
+
+    def __repr__(self):
+        return (f"LazyOpsList(n={self._n}, "
+                f"materialized={self._list is not None})")
+
+
+def _seqs_as_bytes(seqs):
+    """A batch of sequences (str, bytes or uint8 arrays) as a list of bytes
+    with dna-text semantics (non-ASCII to the replacement byte, which the
+    encode table buckets as 'N'): one comprehension for a batch of one
+    kind, element by element for a mixed one."""
+    if not seqs:
+        return []
+    first = seqs[0]
+    try:
+        if isinstance(first, str):
+            return [s.encode("ascii", "replace") for s in seqs]
+        if isinstance(first, (bytes, bytearray)):
+            return [bytes(s) for s in seqs]
+    except (AttributeError, TypeError):
+        pass            # mixed kinds: element by element below
+    return [s.encode("ascii", "replace") if isinstance(s, str)
+            else bytes(s) if isinstance(s, (bytes, bytearray))
+            else np.asarray(s, dtype=np.uint8).tobytes() for s in seqs]
+
+
+def quicked_batch(patterns, texts, *, bandwidth: int, window_size: int,
+                  overlap_size: int, hew_threshold, hew_percentage,
+                  budget: int, n_threads: int | None = None,
+                  rle: bool = False):
+    """Full QuickEd cascade over a batch through the host C runtime
+    (pthread pool inside, no Python per pair).
+
+    Returns (status int64 array, scores int64 array, ops LazyOpsList).
+    status 0: fully aligned in C (ops = the op string, or its RLE text with
+    `rle`; score = edit score); status 1: the band exceeded the Hirschberg
+    budget, score holds the proven bound and the op is None.
+
+    A batch of more than 2 x BATCH_CHUNK_BASES bases runs as chunks of
+    about BATCH_CHUNK_BASES, pipelined: chunk k's sequences are packed on
+    this thread (the GIL held) while chunk k-1 aligns in C on a worker (the
+    GIL released), so that the packed input of only two chunks is held at a
+    time."""
+    lib = _load()
+    n = len(patterns)
+    if n_threads is None:
+        n_threads = default_threads()
+    # lengths from the inputs themselves (ascii-replace is a byte a char);
+    # chunks index the packed buffer by offsets
+    lengths = np.empty(2 * n, dtype=np.int64)
+    lengths[0::2] = np.fromiter(map(len, patterns), np.int64, n)
+    lengths[1::2] = np.fromiter(map(len, texts), np.int64, n)
+    offsets = np.zeros(2 * n, dtype=np.int64)
+    np.cumsum(lengths[:-1], out=offsets[1:])
+    kw = dict(bandwidth=bandwidth, window_size=window_size,
+              overlap_size=overlap_size, hew_threshold=hew_threshold,
+              hew_percentage=hew_percentage, budget=budget,
+              n_threads=n_threads, rle=rle)
+    chunk_bases = BATCH_CHUNK_BASES
+    total_bases = int(lengths.sum())
+    if total_bases > 1 << 18:
+        _ensure_prefault()
+    if n > 1 and total_bases > 2 * chunk_bases:
+        from concurrent.futures import ThreadPoolExecutor
+
+        status = np.zeros(n, dtype=np.int64)
+        scores = np.zeros(n, dtype=np.int64)
+        pair_bases = lengths[0::2] + lengths[1::2]
+        ranges = []
+        lo = 0
+        while lo < n:
+            hi, acc = lo, 0
+            while hi < n and (hi == lo or acc < chunk_bases):
+                acc += int(pair_bases[hi])
+                hi += 1
+            ranges.append((lo, hi))
+            lo = hi
+        segs: list = [None] * len(ranges)
+
+        def collect(k, fut):
+            c_st, c_sc, c_seg = fut.result()
+            l0, h0 = ranges[k]
+            status[l0:h0] = c_st
+            scores[l0:h0] = c_sc
+            segs[k] = c_seg
+
+        with ThreadPoolExecutor(1) as ex:
+            fut, fut_k = None, -1
+            for k, (lo, hi) in enumerate(ranges):
+                cbuf = _pack_pairs_interleaved(patterns[lo:hi],
+                                               texts[lo:hi])
+                coffs = offsets[2 * lo:2 * hi] - offsets[2 * lo]
+                if fut is not None:
+                    collect(fut_k, fut)
+                fut = ex.submit(_quicked_batch_run, lib, cbuf, coffs,
+                                lengths[2 * lo:2 * hi], **kw)
+                fut_k = k
+            collect(fut_k, fut)
+        return status, scores, LazyOpsList(segs)
+    st, sc, seg = _quicked_batch_run(
+        lib, _pack_pairs_interleaved(patterns, texts), offsets, lengths,
+        **kw)
+    return st, sc, LazyOpsList([seg])
+
+
 def _pack_pairs_interleaved(patterns, texts) -> bytes:
     """Pack pattern/text pairs interleaved into ONE bytes buffer with
-    dna-text semantics (non-ASCII -> replacement, 1 byte per char)."""
+    dna-text semantics (non-ASCII -> replacement, 1 byte per char): one
+    join and one encode for a batch of str."""
     from itertools import chain
-
-    def as_bytes(s):
-        if isinstance(s, str):
-            return s.encode("ascii", "replace")
-        if isinstance(s, (bytes, bytearray)):
-            return bytes(s)
-        return np.asarray(s, dtype=np.uint8).tobytes()
 
     if patterns and isinstance(patterns[0], str):
         try:
@@ -440,46 +833,17 @@ def _pack_pairs_interleaved(patterns, texts) -> bytes:
                 .encode("ascii", "replace")
         except TypeError:
             pass            # mixed input kinds: per-element path
-    return b"".join(as_bytes(s) for pair in zip(patterns, texts)
-                    for s in pair)
-
-
-def quicked_batch(patterns, texts, *, bandwidth: int, window_size: int,
-                  overlap_size: int, hew_threshold, hew_percentage,
-                  budget: int, n_threads: int | None = None,
-                  rle: bool = False):
-    """Full QuickEd cascade over a batch in ONE native call (pthread pool
-    inside).
-
-    Returns (status int64 array, scores int64 array, ops list). status 0:
-    fully aligned in C (ops = the op string, or its RLE text with `rle`;
-    score = edit score); status 1: band footprint exceeded the Hirschberg
-    budget, score holds the proven bound and ops is None.
-    """
-    lib = _load()
-    n = len(patterns)
-    lengths = np.empty(2 * n, dtype=np.int64)
-    lengths[0::2] = np.fromiter(map(len, patterns), np.int64, n)
-    lengths[1::2] = np.fromiter(map(len, texts), np.int64, n)
-    offsets = np.zeros(2 * n, dtype=np.int64)
-    np.cumsum(lengths[:-1], out=offsets[1:])
-    status, scores, (arr, off, ln) = _quicked_batch_run(
-        lib, _pack_pairs_interleaved(patterns, texts), offsets, lengths,
-        bandwidth=bandwidth, window_size=window_size,
-        overlap_size=overlap_size, hew_threshold=hew_threshold,
-        hew_percentage=hew_percentage, budget=budget,
-        n_threads=n_threads or default_threads(), rle=rle)
-    raw = arr.tobytes()
-    ops = [raw[o:o + k].decode("ascii") if st == 0 else None
-           for o, k, st in zip(off.tolist(), ln.tolist(), status.tolist())]
-    return status, scores, ops
+    pb = _seqs_as_bytes(patterns)
+    tb = _seqs_as_bytes(texts)
+    return b"".join(b for pair in zip(pb, tb) for b in pair)
 
 
 def _quicked_batch_run(lib, buf, offsets, lengths, *, bandwidth,
                        window_size, overlap_size, hew_threshold,
                        hew_percentage, budget, n_threads, rle):
     """One native cascade call over a chunk: `offsets`/`lengths` are
-    contiguous (2*n,) arrays with offsets into `buf`."""
+    contiguous (2*n,) arrays with offsets into `buf`. Returns (status,
+    scores, (ops array, offsets, lengths, status))."""
     n = len(lengths) // 2
     pair_caps = lengths[0::2] + lengths[1::2]
     ops_off = np.zeros(n, dtype=np.int64)
@@ -514,8 +878,8 @@ def _quicked_batch_run(lib, buf, offsets, lengths, *, bandwidth,
             ops_buf, arr(ops_off), arr(ops_len), n, 1,
             out_arr.ctypes.data_as(ctypes.c_char_p), arr(out_off),
             arr(out_len), n_threads)
-        return status, scores, (out_arr, out_off, out_len)
-    return status, scores, (ops_arr, ops_off, ops_len)
+        return status, scores, (out_arr, out_off, out_len, status)
+    return status, scores, (ops_arr, ops_off, ops_len, status)
 
 
 def hirschberg(pattern_enc: np.ndarray, pattern_raw: bytes,
@@ -533,3 +897,64 @@ def hirschberg(pattern_enc: np.ndarray, pattern_raw: bytes,
         t.ctypes.data_as(_u8p), _u8bytes(text_raw), len(t),
         cutoff_score, budget, ops, ctypes.byref(n)))
     return st, ops.raw[:n.value].decode("ascii")
+
+
+def align_one(algo: int, pattern_raw: bytes, text_raw: bytes, *,
+              only_score: bool = False, bandwidth: int = 15,
+              window_size: int = 9, overlap_size: int = 1,
+              hew_threshold=(40, 40), hew_percentage=(15, 15),
+              budget: int = 16 * 1024 * 1024):
+    """One pair through the host C runtime's quicked_align (qh_align).
+    Returns (status, score, ops str or None)."""
+    lib = _load()
+    ops = ctypes.create_string_buffer(len(pattern_raw) + len(text_raw) + 1)
+    score = ctypes.c_int64()
+    n = ctypes.c_int64()
+    st = int(lib.qh_align(
+        algo, _u8bytes(pattern_raw), len(pattern_raw),
+        _u8bytes(text_raw), len(text_raw),
+        int(only_score), bandwidth, window_size, overlap_size,
+        hew_threshold[0], hew_threshold[1],
+        hew_percentage[0], hew_percentage[1], budget,
+        ctypes.byref(score), ops, ctypes.byref(n)))
+    op_str = ops.raw[:n.value].decode("ascii") if n.value > 0 else None
+    return st, int(score.value), op_str
+
+
+def read_seq_batch(data: bytes, max_pairs: int, offset: int = 0):
+    """Parse up to max_pairs two-line .seq records from `data[offset:]`.
+    Returns (list of (pattern, text) str pairs, bytes consumed). `offset`
+    spares the caller a slice of a multi-megabyte buffer per call."""
+    lib = _load()
+    remaining = len(data) - offset
+    offsets = np.empty(2 * max_pairs, dtype=np.int64)
+    lengths = np.empty(2 * max_pairs, dtype=np.int64)
+    consumed = ctypes.c_int64(0)
+    base = ctypes.cast(ctypes.c_char_p(data), ctypes.c_void_p).value
+    # a modest out buffer first (the parser stops cleanly when it is
+    # full); the whole remainder only if one record does not fit
+    cap = min(remaining, 4 << 20) + 2
+    while True:
+        out = ctypes.create_string_buffer(cap)
+        n = lib.qh_read_seq_batch(
+            ctypes.c_void_p(base + offset), remaining, max_pairs,
+            out, cap, offsets.ctypes.data_as(_i64p),
+            lengths.ctypes.data_as(_i64p), ctypes.byref(consumed))
+        if n > 0 or consumed.value > 0 or cap >= remaining + 2:
+            break
+        cap = remaining + 2
+    pairs = []
+    for i in range(n):
+        po, pl = int(offsets[2 * i]), int(lengths[2 * i])
+        to, tl = int(offsets[2 * i + 1]), int(lengths[2 * i + 1])
+        pairs.append((out[po:po + pl].decode("ascii"),
+                      out[to:to + tl].decode("ascii")))
+    return pairs, int(consumed.value)
+
+
+def encode_dna(raw: bytes) -> np.ndarray:
+    """The host C runtime's 5-letter encoding of `raw` (uint8 codes)."""
+    lib = _load()
+    out = np.empty(len(raw), dtype=np.uint8)
+    lib.qh_encode_dna(_u8bytes(raw), len(raw), out.ctypes.data_as(_u8p))
+    return out

@@ -297,6 +297,33 @@ def run_banded_cuda(batch: BandedBatch, device="cuda") -> dict:
     return fill_staged(stage_banded(batch, device))
 
 
+def full_planes_to_host(out: dict) -> tuple:
+    """The full fill's planes (`mat_pv`, `mat_mv`: (NB*64, EBB, B) int64
+    holding u64 words) as the four u32 (1, NB*64, EBB, B) planes (pv lo,
+    pv hi, mv lo, mv hi) that `native.traceback_banded_batch` walks, a
+    tile of B lanes. Each word is split on the planes' own device (its
+    int32 halves, little-endian) and each half copied to the host once:
+    from a card, into page-locked memory from torch's caching host
+    allocator, which later calls reuse (on the H100 card's host 50 GB/s,
+    against 2.2 GB/s into freshly allocated pageable memory, whose pages
+    fault in on every call; PERF.md)."""
+    dev = out["mat_pv"].device
+    host = []
+    for name in ("mat_pv", "mat_mv"):
+        for k in (0, 1):
+            half = out[name].view(torch.int32)[..., k::2].contiguous()
+            if dev.type == "cpu":
+                host.append(half)
+                continue
+            # the copy is ordered on the stream before any later reuse of
+            # `half`'s memory by the caching allocator
+            dst = torch.empty(half.shape, dtype=half.dtype, pin_memory=True)
+            host.append(dst.copy_(half, non_blocking=True))
+    if dev.type != "cpu":
+        torch.cuda.synchronize(dev)
+    return tuple(h.numpy().view(np.uint32)[None] for h in host)
+
+
 def to_host_dict(out: dict) -> dict:
     """The exact dict of banded_jax.run_banded (banded_jax.py:187-195):
     u32 lo/hi planes, int32 scores and band edges."""

@@ -390,6 +390,6 @@ def test_torch_router_probes_and_calibrates_on_card(tmp_path, monkeypatch):
     assert ab._probe_cache_get("readback_mbps") == mbps
     disp = ab._device_dispatch_s()
     assert 0.0 < disp < 1.0 and ab._device_dispatch_s() == disp
-    for family in ("fill", "full", "sysband", "cscan"):
+    for family in ("fill", "full", "traceback", "sysband", "cscan"):
         rate = ab._calibrate_device_rate(family)
         assert rate is None or rate > 1e6, (family, rate)

@@ -31,6 +31,7 @@ from quicked_tpu_torch.aligner import hirschberg as hb
 from quicked_tpu_torch.ops import banded_native
 from quicked_tpu_torch.ops.batch_prep import prepare_banded_batch
 from quicked_tpu_torch.params import QuickedParams, QuickedStatus
+from quicked_tpu_torch.utils import memreport
 from quicked_tpu_torch.utils.profiler import PhaseTimers
 
 from .test_torch_copies import jax_warmup_inline  # noqa: F401
@@ -48,19 +49,22 @@ def fresh_router(tmp_path, monkeypatch):
     monkeypatch.setenv("QUICKED_TPU_CACHE", str(tmp_path))
     monkeypatch.delenv(ab.PIN_CARD_ENV, raising=False)
     monkeypatch.setattr(ab, "_LINK_MBPS", [])
+    monkeypatch.setattr(ab, "_PINNED_MBPS", [])
     monkeypatch.setattr(ab, "_DISPATCH_S", [])
     monkeypatch.setattr(ab, "_RATES", {})
 
 
 def fake_card(monkeypatch, mbps=10_000.0, dispatch=1e-4, rates=None):
     """Route CPU entries as if they ran on a card whose probes read
-    `mbps` and `dispatch` and whose rates are `rates`."""
+    `mbps` (both links) and `dispatch` and whose rates are `rates`."""
     monkeypatch.setattr(ab, "routed", lambda dev: True)
     monkeypatch.setattr(ab, "_LINK_MBPS", [mbps])
+    monkeypatch.setattr(ab, "_PINNED_MBPS", [mbps])
     monkeypatch.setattr(ab, "_DISPATCH_S", [dispatch])
     monkeypatch.setattr(ab, "_RATES", dict(rates or {
-        "host": 1e9, "host_full": 1e9, "fill": 1e10, "full": 1e10,
-        "sysband": 1e10, "cscan": 1e10}))
+        "host": 1e9, "host_full": 1e9, "host_windowed": 1e9, "walk": 1e7,
+        "fill": 1e10, "full": 1e10, "traceback": 1e10, "sysband": 1e10,
+        "cscan": 1e10, "windowed": 1e10}))
 
 
 def no_calibration(monkeypatch):
@@ -242,6 +246,34 @@ def test_torch_readback_probe_memo_and_outage(monkeypatch):
     assert ab._device_readback_mbps() == 42.0
 
 
+def test_torch_planes_readback_probe_is_its_own(monkeypatch):
+    """The page-locked readback probe (its copies faked) takes the fastest
+    of three copies and is memoized and persisted under its own key, apart
+    from the pageable probe; the readback lane's estimate prices the
+    planes at it."""
+    seconds = []
+    monkeypatch.setattr(ab, "_pinned_readback_seconds",
+                        lambda n: seconds.append(n) or 0.0004)
+    monkeypatch.setattr(ab, "_readback_seconds", lambda n: 0.002)
+    mbps = ab._planes_readback_mbps()
+    assert mbps == (8 << 20) / 0.0004 / 1e6 and len(seconds) == 3
+    assert ab._planes_readback_mbps() == mbps and len(seconds) == 3
+    assert ab._probe_cache_get("pinned_readback_mbps") == mbps
+    assert ab._device_readback_mbps() == (8 << 20) / 0.002 / 1e6
+    pairs = _pairs(2, 600, 41)
+    b = prepare_banded_batch([p for p, _ in pairs], [t for _, t in pairs],
+                             [90] * 2, full=True)
+    monkeypatch.setattr(ab, "_DISPATCH_S", [1e-4])
+    monkeypatch.setattr(ab, "_RATES", {"full": 1e10, "walk": 1e9})
+    adv = ab._deep_band_advances(b)
+    with native.thread_budget(native.usable_cores()):
+        np.testing.assert_allclose(
+            ab._readback_est_s(b, adv) - ab._full_fill_est_s(b, adv),
+            ab._plane_bytes(b) / (mbps * 1e6) + ab._walk_steps(b)
+            / (1e9 * min(2, native.usable_cores()) / native.usable_cores()),
+            rtol=1e-12)
+
+
 def test_torch_kernel_rate_resolution_order(monkeypatch):
     """With calibration declining and an empty cache the measured
     fallback constants come back; a cached entry overrides them; the memo
@@ -380,8 +412,8 @@ def test_torch_pin_card_switch_stops_routing(monkeypatch):
     def no(*a, **k):
         raise AssertionError("the router was consulted")
 
-    for name in ("_device_readback_mbps", "_device_dispatch_s",
-                 "_kernel_rate"):
+    for name in ("_device_readback_mbps", "_planes_readback_mbps",
+                 "_device_dispatch_s", "_kernel_rate"):
         monkeypatch.setattr(ab, name, no)
     ab.router_ready(card)
     pairs = _pairs(2, 200, 9)
@@ -396,8 +428,9 @@ def test_torch_router_never_consulted_on_cpu(monkeypatch):
     def no(*a, **k):
         raise AssertionError("the router was consulted")
 
-    for name in ("_device_readback_mbps", "_device_dispatch_s",
-                 "_kernel_rate", "_prefer_host", "_prefer_host_full",
+    for name in ("_device_readback_mbps", "_planes_readback_mbps",
+                 "_device_dispatch_s", "_kernel_rate", "_prefer_host",
+                 "_full_venue", "prefer_host_windowed",
                  "prefer_staged_short"):
         monkeypatch.setattr(ab, name, no)
     monkeypatch.setattr(native, "quicked_batch", no)
@@ -556,7 +589,7 @@ def test_torch_levels_bit_exact_across_venues(monkeypatch):
     monkeypatch.setattr(hb, "HIRSCHBERG_BUFFER_SIZE", 80_000)
     want = hb.hirschberg_batch(txts, pats, cos, device="cpu")
     fake_card(monkeypatch)
-    monkeypatch.setattr(ab, "_prefer_host_full", lambda batch: False)
+    monkeypatch.setattr(ab, "_full_venue", lambda batch: "full_fill_tb")
     calls = []
 
     def first_level_on_host(batch, family):
@@ -596,7 +629,9 @@ def test_torch_banded_score_host_lane(monkeypatch):
 def test_torch_full_estimate_scales_with_link(monkeypatch):
     """The card's full-chunk estimate: the link term moves with the
     probe, over the chunk's staged inputs, raw frames and records; the
-    kernel term is priced flat in the chunk's pairs."""
+    fill's and the traceback's terms (advances at the `full` rate, walk
+    steps at the `traceback` rate) are priced flat in the chunk's
+    pairs."""
     pairs = _pairs(4, 600, 18)
     b = prepare_banded_batch([p for p, _ in pairs], [t for _, t in pairs],
                              [90] * 4, full=True)
@@ -606,8 +641,8 @@ def test_torch_full_estimate_scales_with_link(monkeypatch):
     fake_card(monkeypatch, mbps=10_000.0, dispatch=0.001)
     fast = ab._full_device_est_s(b, adv)
     np.testing.assert_allclose(
-        fast, 0.001 + ab._full_link_bytes(b) / 10e9 + adv / 1e10,
-        rtol=1e-12)
+        fast, 0.001 + ab._full_link_bytes(b) / 10e9 + adv / 1e10
+        + ab._walk_steps(b) / 1e10, rtol=1e-12)
     monkeypatch.setattr(ab, "_LINK_MBPS", [20.0])
     np.testing.assert_allclose(
         ab._full_device_est_s(b, adv) - fast,
@@ -627,7 +662,8 @@ def test_torch_full_fill_venue_follows_estimate(monkeypatch):
     want = ab.banded_align_batch(pats, txts, cos, only_score=False,
                                  device="cpu")
     for host_full, venue in ((1e30, "full_host_c"), (1.0, "full_fill_tb")):
-        fake_card(monkeypatch, rates={"host_full": host_full, "full": 1e10})
+        fake_card(monkeypatch, rates={"host_full": host_full, "full": 1e10,
+                                      "traceback": 1e10, "walk": 1.0})
         before = ab.venue_snapshot()
         got = ab.banded_align_batch(pats, txts, cos, only_score=False,
                                     device="cpu")
@@ -662,3 +698,308 @@ def test_torch_jax_generate_matches_for_routing_inputs():
     pairs as the JAX package's."""
     assert _pairs(3, 200, 7) == list(jax_generate.generate_pairs(
         3, 200, error=0.1, seed=7))
+
+
+# --- the windowed bound's host C lane and the plane-readback lane --------
+
+
+def test_torch_windowed_advances_and_link_bytes():
+    """The windowed estimates' work and bytes: 64 ws x ws advances over
+    the fewest windows each pair walks, and exactly the bytes
+    `stage_windowed` puts on the device for the bucket."""
+    from quicked_tpu_torch.ops import windowed_cuda as wc
+
+    pairs = _pairs(3, 700, 30, indels_num=1, indels_length=90) + \
+        [("ACGT" * 10, "ACGTT" * 9)]
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    for ws, ovl in ((2, 1), (9, 1), (17, 3)):
+        stride = 64 * (ws - ovl)
+        want = sum(-(-min(len(p), len(t)) // stride) for p, t in pairs)
+        assert ab.windowed_advances(pats, txts, ws, ovl) == \
+            want * 64 * ws * ws
+        st = wc.stage_windowed(wc.prepare_windowed_batch(
+            pats, txts, window_size=ws), "cpu")
+        staged = sum(x.numel() * x.element_size() for x in (
+            st.peq, st.text_enc, st.text_raw, st.pat_raw, st.plen, st.tlen,
+            st.num_words))
+        assert ab._windowed_link_bytes(pats, txts, ws) == staged
+
+
+def test_torch_windowed_estimates_scale(monkeypatch):
+    """The card's windowed estimate moves with the link and the dispatch
+    probe and is flat in the pairs' count; the host's grows with the
+    threads the bucket's pairs can use, a pair a thread."""
+    pairs = _pairs(4, 2_000, 31)
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    adv = ab.windowed_advances(pats, txts, 2, 1)
+    nbytes = ab._windowed_link_bytes(pats, txts, 2)
+    fake_card(monkeypatch, mbps=10_000.0, dispatch=0.001,
+              rates={"host_windowed": 8e9, "windowed": 1e9})
+    monkeypatch.setattr(native, "usable_cores", lambda: 8)
+    with native.thread_budget(8):
+        host, card = ab.windowed_estimates(pats, txts, 2, 1)
+        np.testing.assert_allclose(host, adv / 4e9, rtol=1e-12)
+        np.testing.assert_allclose(
+            card, 0.001 + nbytes / 10e9 + adv / 1e9, rtol=1e-12)
+        host1, _ = ab.windowed_estimates(pats[:1], txts[:1], 2, 1)
+        np.testing.assert_allclose(
+            host1, ab.windowed_advances(pats[:1], txts[:1], 2, 1) / 1e9,
+            rtol=1e-12)
+    monkeypatch.setattr(ab, "_LINK_MBPS", [20.0])
+    monkeypatch.setattr(ab, "_DISPATCH_S", [0.5])
+    _, slow = ab.windowed_estimates(pats, txts, 2, 1)
+    np.testing.assert_allclose(slow - card, 0.499 + nbytes / 20e6
+                               - nbytes / 10e9, rtol=1e-9)
+
+
+@needs_host_c
+@pytest.mark.parametrize("ws,ovl", [(2, 1), (9, 1)])
+def test_torch_windowed_venue_flips_with_rates(ws, ovl, monkeypatch):
+    """Each windowed bucket (one of them over the JAX package's 8,192 bp
+    mark) takes the host C kernel when its rate wins and the card's kernel
+    (its plain version here) when the card's does; scores and HEW counts
+    equal the JAX package's `windowed_score_batch` either way."""
+    pairs = _pairs(3, 600, 32, indels_num=1, indels_length=60) + \
+        _pairs(2, 8_300, 33)
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    assert max(map(len, pats + txts)) > 8_192
+    want = jax_cascade.windowed_score_batch(pats, txts, 40, ws, ovl)
+    for host, venue in ((1e30, "windowed_host_c"), (1.0, "windowed")):
+        fake_card(monkeypatch, rates={"host_windowed": host,
+                                      "windowed": 1e10})
+        before = ab.venue_snapshot()
+        got = cs.windowed_score_batch(pats, txts, 40, ws, ovl, device="cpu")
+        after = ab.venue_snapshot()
+        assert after.get(venue, 0) - before.get(venue, 0) == 2, venue
+        np.testing.assert_array_equal(got[0], np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1], np.asarray(want[1]))
+
+
+@needs_host_c
+def test_torch_wide_windows_stay_on_the_card(monkeypatch):
+    """A bucket with window_size > 16 (beyond the host C kernel) runs the
+    card's kernel without consulting the router, equal to the JAX
+    package's."""
+    pairs = _pairs(2, 1_100, 34, indels_num=1, indels_length=50)
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    fake_card(monkeypatch, rates={"host_windowed": 1e30, "windowed": 1.0})
+
+    def no(*a, **k):
+        raise AssertionError("the router was consulted")
+
+    monkeypatch.setattr(ab, "prefer_host_windowed", no)
+    before = ab.venue_snapshot()
+    got = cs.windowed_score_batch(pats, txts, 40, 17, 1, device="cpu")
+    after = ab.venue_snapshot()
+    assert after.get("windowed", 0) - before.get("windowed", 0) == 1
+    want = jax_cascade.windowed_score_batch(pats, txts, 40, 17, 1)
+    np.testing.assert_array_equal(got[0], np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1], np.asarray(want[1]))
+
+
+def test_torch_readback_estimate_terms(monkeypatch):
+    """The plane-readback lane's estimate: the card's fill (dispatch + staged
+    inputs over the link + advances at the `full` rate), then the planes
+    over the link + the host walk at the `walk` rate for as many threads as
+    pairs; the card's lane has the same fill, then the traceback's bytes
+    over the link + its walk steps at the `traceback` rate; `_full_venue`
+    takes the least of the three estimates."""
+    pairs = _pairs(4, 600, 35)
+    b = prepare_banded_batch([p for p, _ in pairs], [t for _, t in pairs],
+                             [90] * 4, full=True)
+    adv = ab._deep_band_advances(b)
+    fake_card(monkeypatch, mbps=10_000.0, dispatch=0.001,
+              rates={"host_full": 8e9, "full": 1e10, "traceback": 2e8,
+                     "walk": 8e8})
+    monkeypatch.setattr(native, "usable_cores", lambda: 8)
+    planes = b.NB * 64 * b.EBB * b.B * 16
+    steps = sum(len(p) + len(t) for p, t in pairs)
+    assert ab._plane_bytes(b) == planes and ab._walk_steps(b) == steps
+    assert ab._traceback_link_bytes(b) == b.B * b.NB * 64 * 7
+    fill = 0.001 + b.upload_bytes() / 10e9 + adv / 1e10
+    with native.thread_budget(8):
+        est = ab.full_estimates(b)
+        np.testing.assert_allclose(est["full_fill_readback"], fill
+                                   + planes / 10e9 + steps / 4e8,
+                                   rtol=1e-12)
+        np.testing.assert_allclose(est["full_host_c"], adv / 4e9,
+                                   rtol=1e-12)
+        np.testing.assert_allclose(est["full_fill_tb"], fill
+                                   + b.B * b.NB * 64 * 7 / 10e9
+                                   + steps / 2e8, rtol=1e-12)
+        assert ab._full_venue(b) == min(est, key=est.get)
+
+
+@needs_host_c
+@pytest.mark.parametrize("venue,rates", [
+    ("full_host_c", {"host_full": 1e30, "traceback": 1e10, "walk": 1e12}),
+    ("full_fill_tb", {"host_full": 1.0, "traceback": 1e10, "walk": 1.0}),
+    ("full_fill_readback", {"host_full": 1.0, "traceback": 1.0,
+                            "walk": 1e12})])
+def test_torch_full_venue_follows_the_rates(venue, rates, monkeypatch):
+    """Each of the three full-chunk venues wins on its own estimate with
+    the rates faked (the readback lane where the card's traceback is the
+    cost); the scores and CIGARs equal the unrouted run's, and
+    FullFill.Planes is recorded once per full chunk, whichever venue runs
+    it, with the chunk's plane bytes."""
+    pairs = _pairs(3, 500, 40, indels_num=1, indels_length=40)
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    cos = [max(len(p), len(t)) * 15 // 100 for p, t in pairs]
+    want = ab.banded_align_batch(pats, txts, cos, only_score=False,
+                                 device="cpu")
+    fake_card(monkeypatch, rates=dict(rates, full=1e10))
+    memreport.reset()
+    before = ab.venue_snapshot()
+    got = ab.banded_align_batch(pats, txts, cos, only_score=False,
+                                device="cpu")
+    after = ab.venue_snapshot()
+    rec = memreport.memory_report()["recorded"]["FullFill.Planes"]
+    memreport.reset()
+    keys = ab.bucket_keys(map(len, pats), map(len, txts), cos, full=True)
+    assert {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)} == {venue: len(set(keys))}
+    assert rec["count"] == len(set(keys))
+    assert rec["bytes"] == sum(nb * 64 * ebb * 16 for nb, ebb in keys)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+
+
+@needs_host_c
+def test_torch_full_chunk_three_way_choice(monkeypatch):
+    """A full chunk runs on the venue with the least estimate, each of the
+    three in turn; the scores and CIGARs are equal on all three and to the
+    unrouted run's (the plain versions on the CPU)."""
+    pairs = _pairs(3, 500, 36, indels_num=1, indels_length=40)
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    cos = [max(len(p), len(t)) * 15 // 100 for p, t in pairs]
+    want = ab.banded_align_batch(pats, txts, cos, only_score=False,
+                                 device="cpu")
+    fake_card(monkeypatch)
+    venues = ("full_host_c", "full_fill_tb", "full_fill_readback")
+    for venue in venues:
+        monkeypatch.setattr(ab, "full_estimates", lambda batch, v=venue: {
+            k: (1.0 if k == v else 2.0) for k in venues})
+        before = ab.venue_snapshot()
+        got = ab.banded_align_batch(pats, txts, cos, only_score=False,
+                                    device="cpu")
+        after = ab.venue_snapshot()
+        assert {k: after[k] - before.get(k, 0) for k in after
+                if after[k] != before.get(k, 0)} == {venue: 1}
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
+
+
+def test_torch_pin_keeps_the_new_venues_on_the_card(monkeypatch):
+    """QUICKED_TPU_PIN_CARD=1 gives `windowed` and `full_fill_tb` without
+    consulting the router (the CPU stands in for the card: `routed`
+    keeps its rule but for the device's type)."""
+    monkeypatch.setattr(
+        ab, "routed", lambda dev: os.environ.get(ab.PIN_CARD_ENV) != "1")
+    monkeypatch.setenv(ab.PIN_CARD_ENV, "1")
+
+    def no(*a, **k):
+        raise AssertionError("the router was consulted")
+
+    for name in ("prefer_host_windowed", "windowed_estimates",
+                 "_full_venue", "full_estimates"):
+        monkeypatch.setattr(ab, name, no)
+    pairs = _pairs(2, 300, 37)
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    before = ab.venue_snapshot()
+    cs.windowed_score_batch(pats, txts, 40, 2, 1, device="cpu")
+    ab.banded_align_batch(pats, txts, [45, 45], only_score=False,
+                          device="cpu")
+    after = ab.venue_snapshot()
+    assert {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)} == {"windowed": 1,
+                                                 "full_fill_tb": 1}
+
+
+def test_torch_cpu_device_takes_no_new_venue(monkeypatch):
+    """With device="cpu" WINDOWED score-only and BANDED with CIGARs through
+    the API take the card venues (the plain versions) and never consult
+    the router."""
+    from quicked_tpu_torch import api
+    from quicked_tpu_torch.params import QuickedAlgo
+
+    def no(*a, **k):
+        raise AssertionError("the router was consulted")
+
+    for name in ("prefer_host_windowed", "windowed_estimates",
+                 "_full_venue", "full_estimates", "_kernel_rate"):
+        monkeypatch.setattr(ab, name, no)
+    monkeypatch.setattr(cs, "_windowed_native_batch", no)
+    pairs = _pairs(2, 300, 38)
+    before = ab.venue_snapshot()
+    api.align_batch(pairs, QuickedParams(algo=QuickedAlgo.WINDOWED,
+                                         only_score=True), device="cpu")
+    api.align_batch(pairs, QuickedParams(algo=QuickedAlgo.BANDED),
+                    device="cpu")
+    after = ab.venue_snapshot()
+    assert {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)} == {"windowed": 1,
+                                                 "full_fill_tb": 1}
+
+
+@needs_host_c
+def test_torch_new_families_resolve_like_the_others(monkeypatch):
+    """`host_windowed`, `walk`, `traceback` and `windowed` resolve as
+    every family does: the calibration when it measures (persisted), the
+    fallback constant (host families per usable core) when it declines;
+    `router_ready` resolves every family of FAMILIES."""
+    monkeypatch.setattr(ab, "_calibrate_host_windowed_rate", lambda: 5e8)
+    monkeypatch.setattr(ab, "_calibrate_walk_rate", lambda: None)
+    monkeypatch.setattr(ab, "_calibrate_device_rate",
+                        lambda family: 3e7 if family == "windowed" else None)
+    monkeypatch.setattr(ab, "_calibrate_host_rate", lambda full=False: None)
+    assert ab._kernel_rate("host_windowed") == 5e8
+    assert ab._probe_cache_get("adv_rate_host_windowed",
+                               ttl=ab._RATE_TTL_S) == 5e8
+    assert ab._kernel_rate("walk") == \
+        ab.WALK_STEPS_PER_S_PER_CORE * native.usable_cores()
+    assert ab._kernel_rate("windowed") == 3e7
+    assert ab._kernel_rate("traceback") == ab.TRACEBACK_STEPS_PER_S
+    assert set(ab.HOST_FAMILIES) < set(ab.FAMILIES)
+    monkeypatch.setattr(ab, "routed", lambda dev: True)
+    monkeypatch.setattr(ab, "_LINK_MBPS", [1e4])
+    monkeypatch.setattr(ab, "_PINNED_MBPS", [4e4])
+    monkeypatch.setattr(ab, "_DISPATCH_S", [1e-4])
+    ab.router_ready(torch.device("cpu"))
+    assert set(ab._RATES) == set(ab.FAMILIES)
+
+
+@needs_host_c
+def test_torch_host_windowed_calibration_measures(monkeypatch):
+    """The host C windowed calibration times the real kernel (shrunk
+    geometry) on every usable core and persists a measured rate."""
+    monkeypatch.setattr(ab, "_WINDOWED_CAL", (3_000, 2, 1))
+    with native.thread_budget(1):
+        rate = ab._kernel_rate("host_windowed")
+    assert rate > 1e6 and rate != ab._rate_fallback("host_windowed")
+    assert ab._probe_cache_get("adv_rate_host_windowed",
+                               ttl=ab._RATE_TTL_S) == rate
+
+
+def test_torch_windowed_score_entry_resolves_rates_first(monkeypatch):
+    """WINDOWED score-only resolves the router's rates before it aligns
+    (its buckets are routed); WINDOWED with CIGARs, card-only, does
+    not."""
+    from quicked_tpu_torch import api
+    from quicked_tpu_torch.params import QuickedAlgo
+
+    calls = []
+    monkeypatch.setattr(ab, "router_ready", lambda dev: calls.append(dev))
+    pairs = _pairs(2, 200, 39)
+    api.align_batch(pairs, QuickedParams(algo=QuickedAlgo.WINDOWED,
+                                         only_score=True), device="cpu")
+    assert len(calls) == 1
+    api.align_batch(pairs, QuickedParams(algo=QuickedAlgo.WINDOWED),
+                    device="cpu")
+    assert len(calls) == 1

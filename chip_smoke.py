@@ -74,7 +74,9 @@ Run from the repository root. It builds the port's CUDA kernels from
            through `api.BatchAligner`, every score and CIGAR held to the
            host C windowed full mode (`native.windowed_full`), the
            full-mode kernel launched, then timed on that batch with its
-           bound and held to its plain version on two lanes;
+           bound and held to its plain version on two lanes, and the
+           path's wall split into its steps (`kernel_ab.
+           windowed_full_breakdown`);
   phase 7  the CLI on the card: `align_benchmark -a quicked` in-process
            over the phase-3 pairs (written to a .seq file, batches of
            250), every TSV line equal to the host C cascade and the fill,
@@ -286,7 +288,8 @@ REPORTED = {
          "S={0} several_warps={1} full={2}"),
         (r"banded_fill_stream_kernelILb(\d)E", "streamed full={0}")),
     "windowed_score.cu": (
-        (r"windowed_kernelILb(\d)ELb(\d)E", "shared={0} full={1}"),),
+        (r"windowed_kernelILb(\d)E", "score shared={0}"),
+        (r"windowed_full_kernelILb(\d)E", "full shared={0}")),
     "hirschberg_split.cu": ((r"hsplit_kernel", "warps walk task spans"),),
     "banded_traceback.cu": ((r"banded_traceback_kernel", "warp per pair"),),
     "banded_sysband.cu": (
@@ -600,25 +603,35 @@ def band_err(got, want, lanes):
     return err
 
 
-def device_ms(fn, kernel, reps=5):
+def device_ms(fn, kernel, reps=5, sessions=3):
     """Median device milliseconds of the launches of `kernel` (a substring
     of its name) over `reps` runs of fn, by torch.profiler. For a kernel
     shorter than the host time of its wrapper, which the CUDA events
-    around a call would measure instead."""
+    around a call would measure instead.
+
+    A profiler session can come back without the card's activity (the
+    first of a process most often, while CUPTI starts), so a session that
+    recorded no launch of `kernel` is run again, up to `sessions` in all.
+    If none recorded one, the time is that of the whole call by CUDA
+    events, wrapper included, and a line says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [_device_ms(e) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and
-             kernel in e.name]
-    check(times, f"the profiler recorded no launch of {kernel}")
-    return statistics.median(times)
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [_device_ms(e) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and
+                 kernel in e.name]
+        if times:
+            return statistics.median(times)
+    print(f"[device_ms] the profiler recorded no launch of {kernel} in "
+          f"{sessions} sessions: timed by CUDA events, wrapper included")
+    return cuda_ms(fn, reps)
 
 
 def hsplit_bound(host_out, host_task):
@@ -796,8 +809,10 @@ def sysband_plain_check(pool, name, kern, host, entry):
 # the windowed kernel's branches: ws 1 (ovl 0); the last window in shared
 # memory (14) and the first in the scratch (15); 20; past one warp (33)
 WINDOW_SHAPES = ((1, 0), (14, 1), (15, 1), (20, 1), (33, 1))
-# the full-CIGAR mode's: ws 1 (ovl 0), 2, 9 (the default), 14, 15, 20
-FULL_WINDOW_SHAPES = ((1, 0), (2, 1), (9, 1), (14, 1), (15, 1), (20, 1))
+# the full-CIGAR mode's: ws 1 (ovl 0), 2, 9 (the default), 14, 15, 20, and
+# past one warp of blocks (33)
+FULL_WINDOW_SHAPES = ((1, 0), (2, 1), (9, 1), (14, 1), (15, 1), (20, 1),
+                      (33, 1))
 
 
 def windowed_check(name, pats, txts, ws, ovl, torch, pool, reps=5):
@@ -826,24 +841,34 @@ def windowed_check(name, pats, txts, ws, ovl, torch, pool, reps=5):
 def windowed_full_bound(st, ws, ovl):
     """(windows, (bound_ms, bound_by)) of a full-mode windowed launch: the
     score kernel's count of the fewest windows (`windowed_bound`), and the
-    (B, MW, 64 ws) records of 3 bytes and the final cursors written."""
-    from quicked_tpu_torch.ops import windowed_cuda as wc
-
+    (B, P + T) op bytes and B int32 starts written."""
     windows, _ = windowed_bound(st, ws, ovl)
     B = st.plen.numel()
-    mw = wc.max_windows(st.pat_raw.shape[0], st.text_enc.shape[0], ws, ovl)
     nbytes = sum(x.numel() * x.element_size() for x in (
         st.peq, st.text_enc, st.text_raw, st.pat_raw, st.plen, st.tlen,
-        st.num_words)) + B * mw * 64 * ws * 3 + 8 * B
+        st.num_words)) + B * (st.pat_raw.shape[0] + st.text_enc.shape[0]) \
+        + 4 * B
     return windows, bound(nbytes, windows * 64 * ws * ws * OPS_PER_ADVANCE)
+
+
+def ops_err(kern, plain):
+    """0 if two full-mode results (ops, start) hold the same starts and
+    the same op bytes from each start, else inf."""
+    import torch
+
+    (ko, ks), (po, ps) = kern, plain
+    same = torch.equal(ks, ps) and all(
+        torch.equal(ko[b, ks[b]:], po[b, ps[b]:]) for b in range(len(ks)))
+    return 0 if same else float("inf")
 
 
 def windowed_full_check(name, st, ws, ovl, torch, pool, lanes=None,
                         reps=3, phase="phase 2"):
     """The full-mode windowed kernel on the staged CUDA batch `st`
-    against its plain version on a host copy of lanes `lanes` (or all),
-    records and cursors bit-exact; its time (zeroing the records and the
-    pair-major copies included) by CUDA events, with its bound."""
+    against its plain version on a host copy of lanes `lanes` (or all):
+    starts and op bytes from each start equal; its time (the pair-major
+    copies and the outputs' allocation included) by CUDA events, with
+    its bound, and the window's place (shared memory or the scratch)."""
     from quicked_tpu_torch.ops import windowed_cuda as wc
 
     B = st.plen.numel()
@@ -852,15 +877,22 @@ def windowed_full_check(name, st, ws, ovl, torch, pool, lanes=None,
             for x in wc.windowed_full_staged(st, ws, ovl)]
     ms = cuda_ms(lambda: wc.windowed_full_staged(st, ws, ovl), reps)
     windows, (b_ms, b_by) = windowed_full_bound(st, ws, ovl)
+    geo = wc.windowed_full_geometry(
+        ws, B, torch.cuda.get_device_properties(0).multi_processor_count,
+        wc.max_shared_bytes(0))
     entry = dict(ms=ms, bound_ms=b_ms, bound_by=b_by)
     which = "all lanes" if lanes is None else f"lanes {lanes}"
+    lens = kern[0].shape[1] - kern[1]
     print(f"[{phase}] {name}: ws={ws} ovl={ovl} B={B} "
-          f"T={st.text_enc.shape[0]}, at least {windows} windows, records "
-          f"{tuple(kern[0].shape[1:])} a pair, max run {int(kern[0].max())}"
-          f", {which} to the plain version: kernel {ms:.3f} ms (bound "
-          f"{b_ms:.4f} ms, {b_by})")
-    plain_check(pool, name, kern, wc.windowed_full_torch,
-                (select_windowed(st, idx), ws, ovl), entry)
+          f"T={st.text_enc.shape[0]} ("
+          f"{'shared' if geo.scratch_bytes == 0 else 'scratch'}), at least "
+          f"{windows} windows, ops a pair {int(lens.min())}-{int(lens.max())}"
+          f" of {kern[0].shape[1]}, {which} to the plain version: kernel "
+          f"{ms:.3f} ms (bound {b_ms:.4f} ms, {b_by})")
+    check(bool((kern[1] >= 0).all()), f"{name}: a start below 0")
+    plain_check(pool, name, kern, wc.windowed_full_ops_torch,
+                (select_windowed(st, idx), ws, ovl), entry,
+                lambda plain: ops_err(kern, plain))
     return {name: entry}
 
 
@@ -1680,14 +1712,19 @@ def phase6(pairs, torch, pool):
     """WINDOWED with CIGARs (ws 9, ovl 1) over the phase-3 pairs through
     `api.BatchAligner` on the card: every score and CIGAR equal to the
     host C windowed full mode (`native.windowed_full`), the full-mode
-    kernel launched; then the kernel timed on the run's batch (rebuilt as
-    the aligner buckets it) with its bound, and held to its plain version
-    on its first and last lanes of a host copy."""
+    kernel launched; then the wall's steps, each alone
+    (`kernel_ab.windowed_full_breakdown`), the kernel alone with the window
+    in the scratch and in shared memory (on the batch and on its first
+    pair an SM), and the kernel timed on the
+    run's batch (rebuilt as the aligner buckets it) with its bound, and
+    held to its plain version on its first and last lanes of a host
+    copy."""
     from concurrent.futures import ThreadPoolExecutor
 
     from quicked_tpu_torch import dna, native
     from quicked_tpu_torch.api import BatchAligner
     from quicked_tpu_torch.cigar import Cigar
+    from quicked_tpu_torch.kernel_ab import windowed_full_breakdown
     from quicked_tpu_torch.ops import windowed_cuda as wc
     from quicked_tpu_torch.params import QuickedAlgo, QuickedParams
 
@@ -1723,8 +1760,28 @@ def phase6(pairs, torch, pool):
 
     check(launches["windowed_full"] == 1, "phase 6's pairs took more than "
           "one bucket")
+    steps = windowed_full_breakdown(wc, pairs)
+    print(f"[phase 6] the wall's steps, ms (medians of 3; the API's wall "
+          f"{wall * 1e3:.1f}): " + json.dumps(
+              {k: round(v, 3) for k, v in steps.items()}))
     st = wc.stage_windowed(wc.prepare_windowed_batch(
         [p for p, _ in pairs], [t for _, t in pairs], window_size=9), "cuda")
+    # the window's two places, the kernel alone, on the batch and on one
+    # pair an SM (what windowed_full_geometry picks between)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    few = wc.stage_windowed(wc.prepare_windowed_batch(
+        [p for p, _ in pairs[:sms]], [t for _, t in pairs[:sms]],
+        window_size=9), "cuda")
+    for batch in (st, few):
+        for shared in (False, True):
+            fl = wc._full_launch(batch, 9, 1, shared)
+            ms = cuda_ms(lambda: wc.WINDOWED_FULL.launch(
+                batch.peq.device, *fl.args), 3)
+            print(f"[phase 6] full-mode kernel alone, B={batch.plen.numel()}"
+                  f", window in {'shared memory' if shared else 'the scratch'}"
+                  f": {ms:.3f} ms")
+            del fl
+    del few
     return launches, windowed_full_check(
         "wfull_slice", st, 9, 1, torch, pool, lanes=[0, len(pairs) - 1],
         phase="phase 6")

@@ -3,9 +3,12 @@ mode) and the full-CIGAR mode.
 
 The counterpart of quicked_tpu/ops/windowed_jax.py (`windowed_scan_impl`
 in both modes, `run_windowed_score`, `run_windowed_full`). The CUDA
-kernel is `csrc/windowed_score.cu` (one instantiation per mode);
-`windowed_scan_torch` and `windowed_full_torch` are the plain PyTorch
-versions, ports of the XLA while-loop.
+kernels are in `csrc/windowed_score.cu` (`windowed_kernel`, the score
+mode; `windowed_full_kernel`, which writes each pair's op bytes in final
+order); `windowed_scan_torch` and `windowed_full_ops_torch` are their
+plain PyTorch versions, ports of the XLA while-loop
+(`windowed_full_torch`, the full mode's per-column records as the JAX
+package keeps them, expanded by `expand_window_records`).
 
 `WindowedBatch`, `prepare_windowed_batch`, `hew_cell_threshold` and
 `expand_window_records` are numpy helpers copied from windowed_jax.py,
@@ -33,7 +36,10 @@ from quicked_tpu_torch.ops.myers_np import div_ceil
 W = 64
 
 WINDOWED = Kernel("qtt_windowed_score", [P] * 10 + [I] * 9 + [P])
-WINDOWED_FULL = Kernel("qtt_windowed_full", [P] * 12 + [I] * 8 + [P])
+WINDOWED_FULL = Kernel("qtt_windowed_full", [P] * 10 + [I] * 8 + [P])
+# the full-mode kernel's shared memory beside a window: its op ring and
+# the walk's staged chunk (csrc/windowed_score.cu, STAGE)
+FULL_STAGE_BYTES = 3072
 
 
 @dataclasses.dataclass
@@ -342,6 +348,35 @@ def windowed_full_torch(st: StagedWindowed, WS: int, OVL: int):
     return rec_run, rec_op, pos_v.int(), pos_h.int()
 
 
+def ops_width(P: int, T: int) -> int:
+    """L, the row width of the full mode's op buffer for a batch of P
+    pattern and T text rows: P + T (every op consumes a row or a column,
+    so no pair has more ops) rounded up to 16 bytes, so that every row
+    starts 16-byte aligned."""
+    return -(-(P + T) // 16) * 16
+
+
+def windowed_full_ops_torch(st: StagedWindowed, WS: int, OVL: int):
+    """Plain PyTorch version of the full-mode kernel: windowed_full_torch's
+    walk, its records expanded to op strings (expand_window_records) and
+    each written at the end of its pair's row. Returns (ops (B, L) uint8,
+    start (B,) int32), L = ops_width(P, T): pair b's op bytes in forward
+    order at [start[b], L), zeros below."""
+    dev = st.peq.device
+    rec_run, rec_op, pos_v, pos_h = windowed_full_torch(st, WS, OVL)
+    strs = expand_window_records(
+        rec_run.permute(1, 2, 0).cpu().numpy(),
+        rec_op.permute(1, 2, 0).cpu().numpy(), pos_v.cpu().numpy(),
+        pos_h.cpu().numpy())
+    L = ops_width(st.pat_raw.shape[0], st.text_enc.shape[0])
+    ops = np.zeros((len(strs), L), dtype=np.uint8)
+    start = np.empty(len(strs), dtype=np.int32)
+    for b, text in enumerate(strs):
+        start[b] = L - len(text)
+        ops[b, start[b]:] = np.frombuffer(text.encode("ascii"), np.uint8)
+    return torch.from_numpy(ops).to(dev), torch.from_numpy(start).to(dev)
+
+
 def shared_pair_bytes(ws: int) -> int:
     """A pair's shared memory in csrc/windowed_score.cu: Pv after and Mv
     before each of the window's 64*ws columns (ws words each), its raw
@@ -389,10 +424,31 @@ def windowed_geometry(ws: int, B: int, sms: int, max_shared: int
                             scratch_pair_bytes(ws))
 
 
+def windowed_full_geometry(ws: int, B: int, sms: int, max_shared: int,
+                           shared: bool | None = None) -> WindowedGeometry:
+    """Launch geometry of the full-mode kernel: a pair a warp, a warp a
+    CTA. The window sits in shared memory (beside the op ring and the
+    walk's chunk, FULL_STAGE_BYTES) where one pair's fits and the batch runs in one wave of the CTAs that memory
+    lets an SM hold (taken as `max_shared` over one CTA's bytes), else in
+    the pair-major device-memory scratch, where every pair of the batch
+    runs at once and the L2 holds most of the windows. `shared` forces
+    the choice (a window that does not fit is never in shared memory)."""
+    per = FULL_STAGE_BYTES + shared_pair_bytes(ws)
+    fits = per <= max_shared
+    if shared is None:
+        shared = B <= sms * max(max_shared // per, 1)
+    if fits and shared:
+        return WindowedGeometry(span=32, pairs_per_warp=1, shared_bytes=per,
+                                scratch_bytes=0)
+    return WindowedGeometry(span=32, pairs_per_warp=1,
+                            shared_bytes=FULL_STAGE_BYTES,
+                            scratch_bytes=scratch_pair_bytes(ws))
+
+
 @functools.cache
 def max_shared_bytes(device_index: int) -> int:
-    """The dynamic shared memory a CTA of the kernel may take on the
-    card: its opt-in limit less the kernel's static PEQ table."""
+    """The dynamic shared memory a CTA of either mode's kernel may take on
+    the card: its opt-in limit less the kernels' static PEQ table."""
     out = ctypes.c_int()
     fn = load().qtt_windowed_max_shared
     fn.argtypes, fn.restype = [I, ctypes.POINTER(ctypes.c_int)], I
@@ -424,21 +480,25 @@ def _check_windowed(st: StagedWindowed, WS: int):
     return KP, B, T, P_
 
 
+def _pair_major(st: StagedWindowed) -> list:
+    """The pair-major copies of the lane-minor staged batch the kernels
+    read: the inputs, then the lanes."""
+    return [st.peq.permute(2, 0, 1).contiguous(),
+            st.text_enc.t().to(torch.uint8).contiguous(),
+            st.text_raw.t().contiguous(), st.pat_raw.t().contiguous(),
+            st.plen, st.tlen, st.num_words]
+
+
 def _kernel_inputs(st: StagedWindowed, WS: int, B: int):
-    """The launch geometry, the pair-major copies of the lane-minor staged
-    batch the kernel reads (inputs then lanes, as pointers) and its
-    scratch (None in the shared mode)."""
+    """The score kernel's launch geometry, its inputs (`_pair_major`) and
+    its scratch (None in the shared mode)."""
     dev = st.peq.device
     geo = windowed_geometry(
         WS, B, torch.cuda.get_device_properties(dev).multi_processor_count,
         max_shared_bytes(dev.index))
-    bufs = [st.peq.permute(2, 0, 1).contiguous(),
-            st.text_enc.t().to(torch.uint8).contiguous(),
-            st.text_raw.t().contiguous(), st.pat_raw.t().contiguous(),
-            st.plen, st.tlen, st.num_words]
     scratch = (torch.empty((B, geo.scratch_bytes), dtype=torch.uint8,
                            device=dev) if geo.scratch_bytes else None)
-    return geo, bufs, scratch
+    return geo, _pair_major(st), scratch
 
 
 def _launch_windowed(st: StagedWindowed, WS: int, OVL: int,
@@ -455,21 +515,44 @@ def _launch_windowed(st: StagedWindowed, WS: int, OVL: int,
     return score.long(), hew.long()
 
 
-def _launch_windowed_full(st: StagedWindowed, WS: int, OVL: int):
+@dataclasses.dataclass
+class FullLaunch:
+    """A full-mode launch made ready: the C entry's arguments after the
+    device, the tensors they point into, and the outputs."""
+
+    args: tuple
+    inputs: list
+    ops: torch.Tensor     # (B, L) uint8
+    start: torch.Tensor   # (B,) int32
+
+
+def _full_launch(st: StagedWindowed, WS: int, OVL: int,
+                 shared: bool | None = None) -> FullLaunch:
+    """Check the batch and allocate the full-mode kernel's inputs
+    (`_pair_major`), scratch and outputs, uninitialized: the kernel writes
+    every byte of a pair's row from its start and every start."""
     KP, B, T, P_ = _check_windowed(st, WS)
-    geo, bufs, scratch = _kernel_inputs(st, WS, B)
     dev = st.peq.device
-    shape = (B, max_windows(P_, T, WS, OVL), W * WS)
-    rec_run = torch.zeros(shape, dtype=torch.int16, device=dev)
-    rec_op = torch.zeros(shape, dtype=torch.int8, device=dev)
-    pos_v = torch.empty((B,), dtype=torch.int32, device=dev)
-    pos_h = torch.empty_like(pos_v)
-    WINDOWED_FULL.launch(
-        dev, *(x.data_ptr() for x in bufs),
-        None if scratch is None else scratch.data_ptr(), rec_run.data_ptr(),
-        rec_op.data_ptr(), pos_v.data_ptr(), pos_h.data_ptr(), B, KP, T, P_,
-        WS, OVL, geo.span, geo.shared_bytes)
-    return rec_run, rec_op, pos_v, pos_h
+    geo = windowed_full_geometry(
+        WS, B, torch.cuda.get_device_properties(dev).multi_processor_count,
+        max_shared_bytes(dev.index), shared)
+    bufs = _pair_major(st)
+    scratch = (torch.empty((B, geo.scratch_bytes), dtype=torch.uint8,
+                           device=dev) if geo.scratch_bytes else None)
+    L = ops_width(P_, T)
+    ops = torch.empty((B, L), dtype=torch.uint8, device=dev)
+    start = torch.empty((B,), dtype=torch.int32, device=dev)
+    args = (*(x.data_ptr() for x in bufs),
+            None if scratch is None else scratch.data_ptr(), ops.data_ptr(),
+            start.data_ptr(), B, KP, T, P_, WS, OVL, L, geo.shared_bytes)
+    return FullLaunch(args, [*bufs, scratch], ops, start)
+
+
+def _launch_windowed_full(st: StagedWindowed, WS: int, OVL: int,
+                          shared: bool | None = None):
+    fl = _full_launch(st, WS, OVL, shared)
+    WINDOWED_FULL.launch(st.peq.device, *fl.args)
+    return fl.ops, fl.start
 
 
 def windowed_score_staged(st: StagedWindowed, WS: int, OVL: int,
@@ -482,11 +565,11 @@ def windowed_score_staged(st: StagedWindowed, WS: int, OVL: int,
 
 
 def windowed_full_staged(st: StagedWindowed, WS: int, OVL: int):
-    """(rec_run, rec_op, pos_v, pos_h) of the full-CIGAR mode on the staged
-    batch's device (see `windowed_full_torch`): the CUDA kernel for a CUDA
-    batch, the plain version for a CPU one."""
+    """(ops, start) of the full-CIGAR mode on the staged batch's device
+    (see `windowed_full_ops_torch`): the CUDA kernel for a CUDA batch, the
+    plain version for a CPU one."""
     if st.peq.device.type == "cpu":
-        return windowed_full_torch(st, WS, OVL)
+        return windowed_full_ops_torch(st, WS, OVL)
     return _launch_windowed_full(st, WS, OVL)
 
 
@@ -545,15 +628,32 @@ def expand_window_records(runs, opcs, pos_v, pos_h,
     return out
 
 
+def ops_to_host(ops: torch.Tensor, start: torch.Tensor):
+    """(ops, start) of the full mode as numpy arrays: from a card, one copy
+    each into page-locked memory from torch's caching host allocator,
+    which later calls reuse."""
+    if ops.device.type == "cpu":
+        return ops.numpy(), start.numpy()
+    host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(
+        x, non_blocking=True) for x in (ops, start)]
+    torch.cuda.synchronize(ops.device)
+    return host[0].numpy(), host[1].numpy()
+
+
+def decode_ops(ops: np.ndarray, start: np.ndarray,
+               n: int | None = None) -> list[str]:
+    """The op strings of the first n pairs (all by default) of a full-mode
+    result on the host: row b's bytes from start[b]."""
+    n = len(start) if n is None else n
+    return [ops[b, start[b]:].tobytes().decode("ascii") for b in range(n)]
+
+
 def run_windowed_full(batch: WindowedBatch, window_size: int,
                       overlap_size: int, device="cuda") -> list[str]:
     """Full-CIGAR windowed mode: forward-order op strings per pair
-    (windowed_compute's CIGAR path, bpm_windowed.c:563-628). The records
-    go to the host in expand_window_records' (MW, COLS, B) layout."""
+    (windowed_compute's CIGAR path, bpm_windowed.c:563-628). On a card the
+    kernel writes them; the host reads its buffer back once and slices
+    it."""
     st = stage_windowed(batch, device)
-    runs, opcs, pos_v, pos_h = windowed_full_staged(st, window_size,
-                                                    overlap_size)
-    return expand_window_records(
-        runs.permute(1, 2, 0).contiguous().cpu().numpy(),
-        opcs.permute(1, 2, 0).contiguous().cpu().numpy(),
-        pos_v.cpu().numpy(), pos_h.cpu().numpy(), n=batch.B)
+    ops, start = windowed_full_staged(st, window_size, overlap_size)
+    return decode_ops(*ops_to_host(ops, start), n=batch.B)

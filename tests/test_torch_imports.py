@@ -358,16 +358,23 @@ def test_torch_kernels_match_plain_on_card():
             assert torch.equal(a.cpu(), b_)
 
     # the windowed full mode at ws 1 (ovl 0), 2, 9, 14, 15 (the scratch
-    # window) and 20, with a pure-deletion and a pure-insertion pair
+    # window), 20 and 33, the window in shared memory and in the scratch,
+    # with a pure-deletion and a pure-insertion pair: starts and op bytes
     rng = np.random.default_rng(9)
     d = "".join(rng.choice(list("ACGT"), 700))
     fp, ft = pats + [d, d[200:260]], txts + [d[200:260], d]
-    for ws, ovl in ((1, 0), (2, 1), (9, 1), (14, 1), (15, 1), (20, 1)):
+    for ws, ovl in ((1, 0), (2, 1), (9, 1), (14, 1), (15, 1), (20, 1),
+                    (33, 1)):
         b = wc.prepare_windowed_batch(fp, ft, window_size=ws)
-        got = wc.windowed_full_staged(wc.stage_windowed(b, "cuda"), ws, ovl)
-        want = wc.windowed_full_torch(wc.stage_windowed(b, "cpu"), ws, ovl)
-        for g, w in zip(got, want):
-            assert torch.equal(g.cpu(), w), ws
+        st = wc.stage_windowed(b, "cuda")
+        want = wc.windowed_full_ops_torch(wc.stage_windowed(b, "cpu"), ws,
+                                          ovl)
+        for shared in (True, False):
+            ops, start = (x.cpu() for x in wc._launch_windowed_full(
+                st, ws, ovl, shared))
+            assert torch.equal(start, want[1]), (ws, shared)
+            assert all(torch.equal(ops[i, start[i]:], want[0][i, start[i]:])
+                       for i in range(b.B)), (ws, shared)
 
 
 @pytest.mark.cuda

@@ -265,3 +265,118 @@ def test_torch_windowed_full_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         wc._launch_windowed_full(st, 2, 1)
     assert wc.WINDOWED_FULL.launches == 0
+
+
+# the full mode's op buffer at the kernel's branches: ws 1 (ovl 0), 2, 3,
+# 9 (the default), 14 (the last window in shared memory), 15 (the first in
+# the scratch), 20, and 33 (past one warp of blocks)
+FULL_OPS_SHAPES = [(1, 0), (2, 1), (3, 1), (9, 1), (14, 1), (15, 1), (20, 1),
+                   (33, 1)]
+
+
+def _full_ops_pairs(ws, seed):
+    """Pairs for the op buffer, made with numpy from `seed`: random pairs
+    with 4% substitutions, deletions and insertions each, 0.6 and 1.3
+    windows long; a long block deleted from the text and the same block
+    inserted; a pure-deletion and a pure-insertion pair; pairs shorter than
+    a window; one empty side of each kind; `N` and a non-ASCII character."""
+    rng = np.random.default_rng(seed)
+    cols = 64 * ws
+
+    def rand(n):
+        return "".join(rng.choice(list("ACGT"), n))
+
+    def mutate(s):
+        out = []
+        for ch, r in zip(s, rng.random(len(s))):
+            if r < 0.04:
+                continue
+            out.append(str(rng.choice(list("ACGT"))) if r < 0.08 else ch)
+            if r > 0.96:
+                out.append(str(rng.choice(list("ACGT"))))
+        return "".join(out)
+
+    pats, txts = [], []
+    for f in (0.6, 1.3):
+        p = rand(int(cols * f))
+        pats.append(p)
+        txts.append(mutate(p))
+    p = rand(int(cols * 1.2))
+    k = len(p) // 3
+    pats += [p, p[:k] + p[2 * k:]]
+    txts += [p[:k] + p[2 * k:], p]
+    d = rand(min(cols, 400) + 40)
+    pats += [d, d[30:90]]
+    txts += [d[30:90], d]
+    pats += ["ACGTTGCA", "ACGTAC", ""]
+    txts += ["ACGTGCA", "", "ACG"]
+    pats.append("ACGTNNACGÄTTACGT" * 3)
+    txts.append("ACGTNACGÄTTACCGT" * 3)
+    return pats, txts
+
+
+@pytest.mark.parametrize("ws,ovl", FULL_OPS_SHAPES)
+def test_torch_windowed_full_ops_match_jax(ws, ovl):
+    """The full mode's op buffer (`windowed_full_ops_torch`, the plain
+    version of the kernel's function: ops (B, L) uint8, start (B,) int32)
+    against windowed_jax.run_windowed_full, op string by op string: every
+    start at least 0, no pair past its own P + T bound, L the batch's
+    P + T rounded up to 16 bytes; `run_windowed_full` on the CPU gives the
+    same strings."""
+    pats, txts = _full_ops_pairs(ws, 60 + ws)
+    want = wj.run_windowed_full(
+        wj.prepare_windowed_batch(pats, txts, window_size=ws), ws, ovl)
+    tb = wc.prepare_windowed_batch(pats, txts, window_size=ws)
+    ops, start = wc.windowed_full_ops_torch(wc.stage_windowed(tb, "cpu"), ws,
+                                            ovl)
+    assert ops.dtype == torch.uint8 and start.dtype == torch.int32
+    L = ops.shape[1]
+    assert ops.shape[0] == len(pats) and L == wc.ops_width(tb.P, tb.T)
+    assert L % 16 == 0 and L - 16 < tb.P + tb.T <= L
+    assert bool((start >= 0).all())
+    for i, (p, t) in enumerate(zip(pats, txts)):
+        assert L - int(start[i]) <= len(p) + len(t), i
+    assert wc.decode_ops(ops.numpy(), start.numpy()) == want
+    assert wc.run_windowed_full(tb, ws, ovl, device="cpu") == want
+
+
+@pytest.mark.parametrize("ws,shared", [(2, None), (2, True), (2, False),
+                                       (15, None), (33, False)])
+def test_torch_windowed_full_launch_refuses_cpu_tensors(ws, shared):
+    """The full-mode launcher refuses a CPU batch, whichever place the
+    window would take, before it launches anything."""
+    tb = wc.prepare_windowed_batch(["ACGT"], ["ACGT"], window_size=ws)
+    st = wc.stage_windowed(tb, "cpu")
+    before = wc.WINDOWED_FULL.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        wc._launch_windowed_full(st, ws, 1, shared)
+    assert wc.WINDOWED_FULL.launches == before
+
+
+def test_torch_windowed_full_geometry():
+    """The full mode's launch geometry on the H100 (132 SMs, 231,168
+    bytes of dynamic shared memory a CTA): a pair a warp; the window in
+    shared memory beside the op ring and the walk's chunk (3 KB) where it
+    fits (ws <= 14) and the batch runs in one wave of the CTAs that memory
+    lets an SM hold, else in the scratch with those 3 KB alone in shared
+    memory; a forced choice
+    never puts a window that does not fit in shared memory."""
+    sms, dyn = 132, 232_448 - 1280
+    ring = wc.FULL_STAGE_BYTES
+    for ws in range(1, 41):
+        per = ring + wc.shared_pair_bytes(ws)
+        fits = per <= dyn
+        assert fits == (ws <= 14), ws
+        for B in (1, 17, 264, 265, 1000, 5000):
+            for shared in (None, True, False):
+                g = wc.windowed_full_geometry(ws, B, sms, dyn, shared)
+                assert (g.span, g.pairs_per_warp) == (32, 1)
+                want = fits and (B <= sms * (dyn // per) if shared is None
+                                 else shared)
+                if want:
+                    assert (g.shared_bytes, g.scratch_bytes) == (per, 0)
+                else:
+                    assert g.shared_bytes == ring
+                    assert g.scratch_bytes == wc.scratch_pair_bytes(ws)
+    assert wc.windowed_full_geometry(9, 1000, sms, dyn).scratch_bytes > 0
+    assert wc.windowed_full_geometry(9, 264, sms, dyn).scratch_bytes == 0

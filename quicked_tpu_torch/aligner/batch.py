@@ -71,6 +71,8 @@ from quicked_tpu_torch.ops.banded_traceback_cuda import traceback_ops
 from quicked_tpu_torch.ops.batch_prep import (extract_final_scores,
                                               prepare_banded_batch)
 from quicked_tpu_torch.ops.hirschberg_split_cuda import hirschberg_split
+from quicked_tpu_torch.ops.packed import (PackedSeqs, lengths, pack_pairs,
+                                          subset)
 from quicked_tpu_torch.params import QuickedAlgo, QuickedParams, QuickedStatus
 from quicked_tpu_torch.utils import memreport
 
@@ -109,6 +111,31 @@ class BatchResult:
 
 def _next_pow2(x: int) -> int:
     return 1 << max(int(x) - 1, 0).bit_length()
+
+
+def next_pow2(x) -> np.ndarray:
+    """`_next_pow2` of every element of an integer array (int64; exact
+    below 2^53)."""
+    x = np.maximum(np.asarray(x, dtype=np.int64) - 1, 0)
+    return np.left_shift(1, np.frexp(x.astype(np.float64))[1]).astype(
+        np.int64)
+
+
+def key_groups(*keys) -> list:
+    """Group pairs by key: `keys` are equal-length int64 arrays, pair i's
+    key the tuple of their i-th elements. Returns (key tuple, ascending
+    int64 indices) per distinct key, in the order of each key's first
+    pair (the order a dict filled pair by pair keeps)."""
+    if not len(keys[0]):
+        return []
+    stacked = np.stack([np.asarray(k, dtype=np.int64) for k in keys])
+    uniq, first, inv = np.unique(stacked, axis=1, return_index=True,
+                                 return_inverse=True)
+    inv = inv.reshape(-1)
+    members = np.split(np.argsort(inv, kind="stable"),
+                       np.cumsum(np.bincount(inv))[:-1])
+    return [(tuple(int(v) for v in uniq[:, g]), members[g])
+            for g in np.argsort(first, kind="stable")]
 
 
 def _raw_bytes(s) -> bytes:
@@ -168,16 +195,26 @@ def score_key(geo: myers_np.BandGeometry, finish: int) -> tuple[int, int]:
             _next_pow2(myers_np.div_ceil(geo.cutoff, W) + 1))
 
 
+def _bucket_key_arrays(plens, tlens, cutoffs, full: bool):
+    """(pow2(NB), pow2(EBB)) of every pair as two int64 arrays, from one
+    `myers_np.band_geometries` over the batch."""
+    def i64(x):
+        if isinstance(x, np.ndarray):
+            return x.astype(np.int64)
+        return np.fromiter(x, dtype=np.int64)
+
+    tl = i64(tlens)
+    geo = myers_np.band_geometries(i64(plens), tl, i64(cutoffs))
+    ebb = geo.ebb if full else myers_np.div_ceil(geo.cutoff, W) + 1
+    nb = np.maximum(myers_np.div_ceil(tl, W), 1)
+    return next_pow2(nb), next_pow2(ebb)
+
+
 def bucket_keys(plens, tlens, cutoffs, full: bool):
     """Bucket key per pair: (pow2(NB), pow2(EBB)), so pairs of like
     geometry share a launch."""
-    keys = []
-    for pl, tl, co in zip(plens, tlens, cutoffs):
-        geo = myers_np.band_geometry(int(pl), int(tl), int(co))
-        ebb = geo.ebb if full else myers_np.div_ceil(geo.cutoff, W) + 1
-        nb = max(myers_np.div_ceil(int(tl), W), 1)
-        keys.append((_next_pow2(nb), _next_pow2(ebb)))
-    return keys
+    nb, ebb = _bucket_key_arrays(plens, tlens, cutoffs, full)
+    return list(zip(nb.tolist(), ebb.tolist()))
 
 
 # --- the venue router ----------------------------------------------------
@@ -739,9 +776,7 @@ def windowed_advances(patterns, texts, ws: int, ovl: int) -> float:
     0, so a pair walks at least ceil(min(plen, tlen) / (64 (ws - ovl)))
     windows (chip_smoke's `windowed_bound` counts them so)."""
     stride = W * max(ws - ovl, 1)
-    short = np.minimum(np.fromiter(map(len, patterns), np.int64,
-                                   len(patterns)),
-                       np.fromiter(map(len, texts), np.int64, len(texts)))
+    short = np.minimum(lengths(patterns), lengths(texts))
     return float(np.sum(-(-short // stride))) * W * ws * ws
 
 
@@ -750,8 +785,8 @@ def _windowed_link_bytes(patterns, texts, ws: int) -> int:
     u64 PEQ words, the encoded and raw text and the raw pattern as int32
     frames of at least a window, and three int32 lane vectors."""
     cols = W * ws
-    plen = max(map(len, patterns), default=1)
-    tlen = max(map(len, texts), default=1)
+    plen = int(lengths(patterns).max(initial=1))
+    tlen = int(lengths(texts).max(initial=1))
     kp = max(-(-plen // W), 1)
     return len(patterns) * (kp * 5 * 8 + 2 * max(tlen, cols) * 4
                             + max(plen, cols) * 4 + 3 * 4)
@@ -878,13 +913,48 @@ def prefer_staged_short(total_bases: int) -> bool:
     return staged_s < native_s
 
 
+class _OpsOut:
+    """The op strings of a full banded batch as its chunks deliver them:
+    a list of str in input order, or (`packed`) one PackedSeqs of op
+    bytes that no per-pair str is made for on the way."""
+
+    def __init__(self, n: int, packed: bool):
+        self.n, self.packed = n, packed
+        self.pieces: list = []
+        self.strs: list = [None] * n
+
+    def put(self, idx, ops) -> None:
+        """The ops of pairs `idx`: a list of str, or a native.LazyOpsList
+        whose packed bytes are taken as they are."""
+        if not self.packed:
+            for j, i in enumerate(np.asarray(idx).tolist()):
+                self.strs[i] = ops[j]
+            return
+        segs = ops.segments() if isinstance(ops, native.LazyOpsList) \
+            else None
+        if segs is None:
+            pk = PackedSeqs.of_bytes(ops)
+            segs = pk.buf, pk.off, pk.len
+        self.pieces.append((idx, *segs))
+
+    def result(self):
+        if self.packed:
+            return PackedSeqs.concat(self.n, self.pieces)
+        return self.strs
+
+
 def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
-                       device="cuda", raws=None):
+                       device="cuda", raws=None, packed_ops: bool = False):
     """BANDED over a batch (run_banded, quicked.c:58-89, per pair).
     Returns (scores int64 array, ops list of str|None).
 
+    patterns/texts: lists of str or pre-encoded arrays, or PackedSeqs; a
+    batch that packs (`packed.pack_pairs`) is bucketed, framed and
+    subset a few numpy calls per chunk, its raw characters its buffers.
     `raws`: optional (praws, traws) raw byte strings for pre-encoded
     inputs; the traceback's M test compares raw characters.
+    `packed_ops` (full mode): the ops as one PackedSeqs of op bytes in
+    input order, the card's chunks' bytes as the traceback packed them.
 
     On a card the router picks each chunk's venue before any launch,
     whichever estimate wins: a full chunk runs the card's fill and
@@ -903,15 +973,26 @@ def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
     mesh = active_mesh(dev)
     route = routed(dev) and native.available()
     n = len(patterns)
+    pk = pack_pairs(patterns, texts)
+    if pk is not None:
+        patterns, texts = pk
+    cutoffs = np.asarray(cutoffs, dtype=np.int64)
     scores = np.zeros(n, dtype=np.int64)
-    ops_out: list = [None] * n
-    keys = bucket_keys([len(p) for p in patterns], [len(t) for t in texts],
-                       cutoffs, full=not only_score)
-    by_key: dict = {}
-    for i, k in enumerate(keys):
-        by_key.setdefault(k, []).append(i)
+    ops_out = None if only_score else _OpsOut(n, packed_ops)
 
-    for (nb_p2, ebb_p2), idxs in by_key.items():
+    def raws_of(sub):
+        """The chunk's (praws, traws) lists of bytes."""
+        if pk is not None:
+            return subset(patterns, sub).raws(), subset(texts, sub).raws()
+        if raws:
+            return ([raws[0][i] for i in sub.tolist()],
+                    [raws[1][i] for i in sub.tolist()])
+        return ([_raw_bytes(patterns[i]) for i in sub.tolist()],
+                [_raw_bytes(texts[i]) for i in sub.tolist()])
+
+    groups = key_groups(*_bucket_key_arrays(
+        lengths(patterns), lengths(texts), cutoffs, full=not only_score))
+    for (nb_p2, ebb_p2), idxs in groups:
         chunk = len(idxs)
         if not only_score:
             per_lane = nb_p2 * W * ebb_p2 * 16
@@ -920,9 +1001,9 @@ def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
             sub = idxs[s:s + chunk]
             if not only_score:
                 memreport.record("FullFill.Planes", per_lane * len(sub))
-            batch = prepare_banded_batch(
-                [patterns[i] for i in sub], [texts[i] for i in sub],
-                [cutoffs[i] for i in sub], full=not only_score)
+            pats, txts = subset(patterns, sub), subset(texts, sub)
+            batch = prepare_banded_batch(pats, txts, cutoffs[sub],
+                                         full=not only_score)
             family = score_family(len(sub), ebb_p2) if only_score else "fill"
             venue = family if only_score else "full_fill_tb"
             if route and only_score and _prefer_host(batch, family):
@@ -934,26 +1015,21 @@ def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
                 venue = _full_venue(batch)
             if venue == "full_host_c":
                 _venue(venue)
+                if pk is not None:
+                    enc_p, enc_t = pats.arrays(), txts.arrays()
+                else:
+                    enc_p, enc_t = pats, txts
                 sc, ops = run_banded_full_native(
-                    [patterns[i] for i in sub], [texts[i] for i in sub],
-                    [cutoffs[i] for i in sub],
-                    raws=([raws[0][i] for i in sub],
-                          [raws[1][i] for i in sub]) if raws else None)
+                    enc_p, enc_t, cutoffs[sub],
+                    raws=raws_of(sub) if pk is not None or raws else None)
                 scores[sub] = sc
-                for j, i in enumerate(sub):
-                    ops_out[i] = ops[j]
+                ops_out.put(sub, ops)
                 continue
             if venue == "full_fill_readback":
                 _venue(venue)
-                sc, ops = _run_full_readback(
-                    batch, dev,
-                    [raws[0][i] if raws else _raw_bytes(patterns[i])
-                     for i in sub],
-                    [raws[1][i] if raws else _raw_bytes(texts[i])
-                     for i in sub])
+                sc, ops = _run_full_readback(batch, dev, *raws_of(sub))
                 scores[sub] = sc
-                for j, i in enumerate(sub):
-                    ops_out[i] = ops[j]
+                ops_out.put(sub, ops)
                 continue
             if mesh is None:
                 _venue(venue)
@@ -967,24 +1043,26 @@ def banded_align_batch(patterns, texts, cutoffs, *, only_score: bool,
             # past the chunk's pairs are the shards' padding
             for lo, part, out in parts:
                 live = sub[lo:lo + part.B]
-                if not live:
+                if not len(live):
                     continue
                 sc = extract_final_scores(part,
                                           out["scores_by_k"].cpu().numpy())
                 scores[live] = sc[:len(live)]
                 if only_score:
                     continue
-                praws = [raws[0][i] if raws else _raw_bytes(patterns[i])
-                         for i in live]
-                traws = [raws[1][i] if raws else _raw_bytes(texts[i])
-                         for i in live]
+                if pk is not None:
+                    lanes = np.arange(lo, lo + len(live))
+                    praws, traws = subset(pats, lanes), subset(txts, lanes)
+                else:
+                    praws, traws = raws_of(live)
                 ops = traceback_ops(out["mat_pv"], out["mat_mv"], praws,
                                     traws, part.plen, part.tlen, part.prolog,
                                     len(live))
-                for j, i in enumerate(live):
-                    ops_out[i] = ops[j]
+                ops_out.put(live, ops)
             del parts   # free this chunk's planes before the next one
-    return scores, ops_out
+    if only_score:
+        return scores, [None] * n
+    return scores, ops_out.result()
 
 
 def _run_full_readback(batch, dev, praws, traws):
@@ -1259,11 +1337,12 @@ def align_batch_full(pairs, params: QuickedParams | None = None,
         from quicked_tpu_torch.aligner.cascade import quicked_cascade_batch
         res = quicked_cascade_batch([pairs[i] for i in live], params,
                                     timers=timers, device=dev)
-        for j, i in enumerate(live):
-            statuses[i] = res.status[j]
-            scores[i] = res.score[j]
-            # only_score keeps the cigar NULL (quicked.c:38-42)
-            cigars[i] = None if params.only_score else res.cigar[j]
+        scores[live] = res.score
+        # only_score keeps the cigar NULL (quicked.c:38-42)
+        cig = [None] * len(live) if params.only_score else list(res.cigar)
+        for j, (i, st) in enumerate(zip(live, res.status)):
+            statuses[i] = st
+            cigars[i] = cig[j]
         return BatchResult(statuses, scores, cigars)
 
     for i in live:

@@ -46,10 +46,11 @@ import numpy as np
 
 from quicked_tpu_torch import dna, native
 from quicked_tpu_torch.aligner import batch as ab
-from quicked_tpu_torch.aligner.batch import (_next_pow2, active_mesh,
-                                              banded_align_batch)
-from quicked_tpu_torch.cigar import Cigar
+from quicked_tpu_torch.aligner.batch import active_mesh, banded_align_batch
+from quicked_tpu_torch.cigar import Cigar, score_edit_packed
 from quicked_tpu_torch.device import resolve_device
+from quicked_tpu_torch.ops.packed import (PackedSeqs, as_list, lengths,
+                                          pack_pairs, subset)
 from quicked_tpu_torch.ops.windowed_cuda import (prepare_windowed_batch,
                                                  run_windowed_full,
                                                  run_windowed_score)
@@ -96,10 +97,20 @@ def _windowed_native_batch(patterns, texts, hew_threshold, window_size,
     return scores, hews
 
 
+def _windowed_groups(patterns, texts, window_size: int) -> list:
+    """The windowed buckets of a batch: (key, ascending indices) per
+    distinct pow2 of max(plen, tlen, 64 ws), in first-pair order."""
+    key = np.maximum(np.maximum(lengths(patterns), lengths(texts)),
+                     W * window_size)
+    return ab.key_groups(ab.next_pow2(key))
+
+
 def windowed_score_batch(patterns, texts, hew_threshold: int,
                          window_size: int, overlap_size: int,
                          device="cuda"):
     """Bucketed windowed score bound. Returns (score, hew) int64 arrays.
+    patterns/texts: lists of str or encoded arrays, or PackedSeqs (a
+    batch that packs is subset per bucket without a step a pair).
     Where the router decides (a card, no mesh, not pinned) a bucket with
     window_size <= 16 runs the host C kernel when its estimate beats the
     card's (`batch.prefer_host_windowed`); every other bucket runs the
@@ -108,22 +119,20 @@ def windowed_score_batch(patterns, texts, hew_threshold: int,
     dev = resolve_device(device)
     mesh = active_mesh(dev)
     route = ab.routed(dev) and native.available() and window_size <= 16
+    pk = pack_pairs(patterns, texts)
+    if pk is not None:
+        patterns, texts = pk
     n = len(patterns)
     scores = np.zeros(n, dtype=np.int64)
     hews = np.zeros(n, dtype=np.int64)
-    cols = W * window_size
-    by_key: dict = {}
-    for i in range(n):
-        key = _next_pow2(max(len(patterns[i]), len(texts[i]), cols))
-        by_key.setdefault(key, []).append(i)
-    for idxs in by_key.values():
-        pats = [patterns[i] for i in idxs]
-        txts = [texts[i] for i in idxs]
+    for _, idxs in _windowed_groups(patterns, texts, window_size):
+        pats, txts = subset(patterns, idxs), subset(texts, idxs)
         if route and ab.prefer_host_windowed(pats, txts, window_size,
                                              overlap_size):
             ab._venue("windowed_host_c")
-            sc, hw = _windowed_native_batch(pats, txts, hew_threshold,
-                                            window_size, overlap_size)
+            sc, hw = _windowed_native_batch(as_list(pats), as_list(txts),
+                                            hew_threshold, window_size,
+                                            overlap_size)
         elif mesh is None:
             ab._venue("windowed")
             sc, hw = run_windowed_score(
@@ -154,19 +163,17 @@ def windowed_full_batch(patterns, texts, window_size: int,
     mesh = active_mesh(dev)
     if mesh is not None:
         dev = mesh.devices[0]
+    pk = pack_pairs(patterns, texts)
+    if pk is not None:
+        patterns, texts = pk
     out: list = [None] * len(patterns)
-    cols = W * window_size
-    by_key: dict = {}
-    for i in range(len(patterns)):
-        key = _next_pow2(max(len(patterns[i]), len(texts[i]), cols))
-        by_key.setdefault(key, []).append(i)
-    for idxs in by_key.values():
+    for _, idxs in _windowed_groups(patterns, texts, window_size):
         batch = prepare_windowed_batch(
-            [patterns[i] for i in idxs], [texts[i] for i in idxs],
+            subset(patterns, idxs), subset(texts, idxs),
             window_size=window_size)
         ops = run_windowed_full(batch, window_size, overlap_size,
                                 device=dev)
-        for j, i in enumerate(idxs):
+        for j, i in enumerate(idxs.tolist()):
             out[i] = ops[j]
     return out
 
@@ -310,86 +317,91 @@ def _cascade_with_native_lane(pairs, params: QuickedParams, timers, fast,
 def proven_bounds(pats, txts, params: QuickedParams, timers,
                   device) -> np.ndarray:
     """Stages 1-3: the score bound each pair's stage-4 alignment runs
-    under (quicked.c:184-276). int64 array in input order."""
-    n = len(pats)
-    max_len = np.array([max(len(p), len(t)) for p, t in zip(pats, txts)],
-                       dtype=np.int64)
+    under (quicked.c:184-276). int64 array in input order. pats/txts:
+    lists of sequences, or PackedSeqs."""
+    plen, tlen = lengths(pats), lengths(txts)
+    max_len = np.maximum(plen, tlen)
 
     # ---- STAGE 1: fast windowed bound (quicked.c:184-199) ----
     timers.windowed_s.start()
     score, hew = windowed_score_batch(pats, txts, params.hew_threshold[0],
                                       2, 1, device=device)
     timers.windowed_s.stop()
-    hard = [i for i in range(n)
-            if hew[i] * W > max_len[i] * params.hew_percentage[0] // 100]
+    hard = np.flatnonzero(
+        hew * W > max_len * params.hew_percentage[0] // 100)
 
-    if hard:
+    if len(hard):
         # ---- STAGE 2: large windows, forward + reversed pair ----
         ws, ovl = params.window_size, params.overlap_size
         timers.windowed_l.start()
+        hp, ht = subset(pats, hard), subset(txts, hard)
+        if isinstance(hp, PackedSeqs):
+            rp, rt = hp.reversed(), ht.reversed()
+        else:
+            rp, rt = [p[::-1] for p in hp], [t[::-1] for t in ht]
         s_fwd, hew_fwd = windowed_score_batch(
-            [pats[i] for i in hard], [txts[i] for i in hard],
-            params.hew_threshold[1], ws, ovl, device=device)
+            hp, ht, params.hew_threshold[1], ws, ovl, device=device)
         s_rev, hew_rev = windowed_score_batch(
-            [pats[i][::-1] for i in hard], [txts[i][::-1] for i in hard],
-            params.hew_threshold[1], ws, ovl, device=device)
+            rp, rt, params.hew_threshold[1], ws, ovl, device=device)
         timers.windowed_l.stop()
-        harder = []
-        for j, i in enumerate(hard):
-            sc = min(s_fwd[j], s_rev[j])
-            hw = hew_fwd[j]
-            if sc >= s_rev[j]:
-                hw = hew_rev[j]
-            score[i] = sc
-            if hw * W * (ws - ovl) > \
-                    max_len[i] * params.hew_percentage[1] // 100:
-                harder.append(i)
+        sc = np.minimum(s_fwd, s_rev)
+        hw = np.where(sc >= s_rev, hew_rev, hew_fwd)
+        score[hard] = sc
+        harder = hard[hw * W * (ws - ovl)
+                      > max_len[hard] * params.hew_percentage[1] // 100]
 
-        if harder:
+        if len(harder):
             # ---- STAGE 3: banded score + telescoping retry
             # (quicked.c:246-276) ----
             timers.banded.start()
-            cut = {i: int(min(max_len[i] * params.bandwidth // 100,
-                              score[i]))
-                   for i in harder}
+            cut = np.minimum(max_len * params.bandwidth // 100, score)
             # Narrow-band trial: a banded score <= its cutoff is exact, so
             # a 5/8 band resolves cap-limited pairs at ~5/8 the cost;
             # failures fall into the reference retry schedule below.
-            trial = [i for i in harder
-                     if score[i] > cut[i] and cut[i] >= 4096
-                     and cut[i] * 5 // 8
-                     > abs(len(pats[i]) - len(txts[i])) + 1]
-            if trial:
-                tcut = [cut[i] * 5 // 8 for i in trial]
+            tcut = cut * 5 // 8
+            trial = harder[(score[harder] > cut[harder])
+                           & (cut[harder] >= 4096)
+                           & (tcut[harder]
+                              > np.abs(plen[harder] - tlen[harder]) + 1)]
+            if len(trial):
                 ts, _ = banded_align_batch(
-                    [pats[i] for i in trial], [txts[i] for i in trial],
-                    tcut, only_score=True, device=device)
-                accepted = set()
-                for j, i in enumerate(trial):
-                    s = int(ts[j])
-                    if 0 <= s <= tcut[j]:
-                        score[i] = s
-                        accepted.add(i)
-                harder = [i for i in harder if i not in accepted]
-            pending = list(harder)
-            while pending:
+                    subset(pats, trial), subset(txts, trial), tcut[trial],
+                    only_score=True, device=device)
+                ok = (ts >= 0) & (ts <= tcut[trial])
+                score[trial[ok]] = ts[ok]
+                harder = np.setdiff1d(harder, trial[ok])
+            pending = harder
+            while len(pending):
                 ns, _ = banded_align_batch(
-                    [pats[i] for i in pending], [txts[i] for i in pending],
-                    [cut[i] for i in pending], only_score=True,
-                    device=device)
-                nxt = []
-                for j, i in enumerate(pending):
-                    new_score = int(ns[j])
-                    if (new_score > max_len[i] // 4
-                            and cut[i] * 3 // 2 < new_score) or new_score < 0:
-                        # floor at 1: a zero cut would double to zero
-                        cut[i] = max(cut[i] * 2, 1)
-                        nxt.append(i)
-                    else:
-                        score[i] = new_score
-                pending = nxt
+                    subset(pats, pending), subset(txts, pending),
+                    cut[pending], only_score=True, device=device)
+                retry = ((ns > max_len[pending] // 4)
+                         & (cut[pending] * 3 // 2 < ns)) | (ns < 0)
+                done = pending[~retry]
+                score[done] = ns[~retry]
+                pending = pending[retry]
+                # floor at 1: a zero cut would double to zero
+                cut[pending] = np.maximum(cut[pending] * 2, 1)
             timers.banded.stop()
     return score
+
+
+def cigar_results(ops: PackedSeqs):
+    """(edit scores int64, RLE CIGARs) of every op string of a packed
+    buffer, an empty one's CIGAR None: with the host C runtime, the
+    scores in numpy (`cigar.score_edit_packed`) and the CIGARs in one call
+    (`native.cigar_sprint_packed`, a LazyOpsList); without it, a `Cigar`
+    a pair, as `Cigar.sprint` itself falls back."""
+    if native.available():
+        return (score_edit_packed(ops.buf, ops.off, ops.len),
+                native.cigar_sprint_packed(ops.buf, ops.off, ops.len))
+    scores = np.zeros(len(ops), dtype=np.int64)
+    cigars: list = [None] * len(ops)
+    for i, o in enumerate(ops.strs()):
+        c = Cigar(operations=o)
+        scores[i] = c.score_edit()
+        cigars[i] = c.sprint(True) if o else None
+    return scores, cigars
 
 
 def _cascade_staged(pairs, params: QuickedParams, timers,
@@ -399,23 +411,19 @@ def _cascade_staged(pairs, params: QuickedParams, timers,
     n = len(pairs)
     pats = [p for p, _ in pairs]
     txts = [t for _, t in pairs]
+    pk = pack_pairs(pats, txts)
+    if pk is not None:
+        pats, txts = pk
     score = proven_bounds(pats, txts, params, timers, device)
 
     # ---- STAGE 4: full alignment under the proven bound ----
     timers.align.start()
-    res = hirschberg_batch(txts, pats, [int(s) for s in score],
-                           device=device)
+    res = hirschberg_batch(txts, pats, score, device=device)
     timers.align.stop()
 
-    statuses: list = [None] * n
-    final_scores = np.full(n, -1, dtype=np.int64)
-    cigars: list = [None] * n
-    for i, (st, ops) in enumerate(res):
-        # run_quicked ignores the Hirschberg status and extracts whatever
-        # (possibly partial) CIGAR is in the buffer, returning WIP
-        # (quicked.c:290-305)
-        statuses[i] = QuickedStatus.QUICKED_WIP
-        c = Cigar(operations=ops or "")
-        final_scores[i] = c.score_edit()
-        cigars[i] = c.sprint(True) if ops else None
-    return CascadeResult(status=statuses, score=final_scores, cigar=cigars)
+    # run_quicked ignores the Hirschberg status and extracts whatever
+    # (possibly partial) CIGAR is in the buffer, returning WIP
+    # (quicked.c:290-305)
+    final_scores, cigars = cigar_results(res.ops)
+    return CascadeResult(status=[QuickedStatus.QUICKED_WIP] * n,
+                         score=final_scores, cigar=cigars)

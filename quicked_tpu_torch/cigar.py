@@ -18,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 import re
 
+import numpy as np
+
 # SAM op codes (cigar.c:30-38)
 SAM_CIGAR_MATCH, SAM_CIGAR_INS, SAM_CIGAR_DEL = 0, 1, 2
 SAM_CIGAR_N_SKIP, SAM_CIGAR_EQ, SAM_CIGAR_X = 3, 7, 8
@@ -269,3 +271,41 @@ class Cigar:
             f"      TEXT       {''.join(text_alg)}",
         ]
         return "\n".join(lines)
+
+
+def score_edit_packed(ops: np.ndarray, off, lens) -> np.ndarray:
+    """`Cigar.score_edit` of many op strings at once, read where they lie
+    in one buffer (`ops` uint8; string i is ops[off[i]:off[i] + lens[i]]):
+    each one's count of bytes other than M, as int64. Raises the
+    ValueError `score_edit` raises, for the first string in order holding
+    a byte outside MXID."""
+    ops = np.asarray(ops, dtype=np.uint8)
+    off = np.asarray(off, dtype=np.int64)
+    lens = np.asarray(lens, dtype=np.int64)
+    if not len(lens):
+        return np.zeros(0, dtype=np.int64)
+    # reduceat over the (start, end) pairs of the strings in buffer order
+    # sums each string's flags at the even rows (the odd rows are the
+    # spans between strings, so the pass reads the buffer once); an empty
+    # string's row is the element at its start, so it is masked to 0, and
+    # a False after the buffer keeps every end in range
+    order = np.argsort(off, kind="stable")
+    bounds = np.stack([off[order], off[order] + lens[order]], axis=1)
+
+    acc = np.int32 if len(ops) < (1 << 31) else np.int64
+
+    def per_string(flags):
+        sums = np.empty(len(lens), dtype=np.int64)
+        sums[order] = np.add.reduceat(np.append(flags, False).view(np.uint8),
+                                      bounds.ravel(), dtype=acc)[0::2]
+        return np.where(lens > 0, sums, 0)
+
+    bad = (ops != ord("M")) & (ops != ord("X")) & (ops != ord("I")) & \
+        (ops != ord("D"))
+    if bad.any():
+        hits = np.flatnonzero(per_string(bad))
+        if len(hits):
+            o, k = off[hits[0]], lens[hits[0]]
+            ch = ops[o:o + k][bad[o:o + k]][0]
+            raise ValueError(f"[CIGAR] Unknown operation ({chr(ch)})")
+    return per_string(ops != ord("M"))

@@ -697,6 +697,22 @@ class LazyOpsList:
             self._segs = None
         return self._list
 
+    def segments(self):
+        """(ops uint8 array, int64 offsets, int64 lengths) of every element
+        as the packed buffers hold them, without decoding; None once
+        decoded, or where an element is None (a status other than 0)."""
+        if self._segs is None or any(np.any(st) for *_, st in self._segs):
+            return None
+        if len(self._segs) == 1:
+            arr, off, ln, _ = self._segs[0]
+            return arr, np.asarray(off, np.int64), np.asarray(ln, np.int64)
+        base = np.cumsum([0] + [len(a) for a, *_ in self._segs[:-1]])
+        return (np.concatenate([a for a, *_ in self._segs]),
+                np.concatenate([np.asarray(o, np.int64) + b for (_, o, *_), b
+                                in zip(self._segs, base)]),
+                np.concatenate([np.asarray(k, np.int64)
+                                for _, _, k, _ in self._segs]))
+
     def with_empty_as_none(self):
         """The view with the cascade's `x if x else None` normalization."""
         if self._list is not None:
@@ -868,18 +884,46 @@ def _quicked_batch_run(lib, buf, offsets, lengths, *, bandwidth,
         arr(scores), arr(status), ops_buf, arr(ops_off), arr(ops_len))
     if rle:
         # one more C pass: RLE-print every CIGAR into a second buffer
-        out_caps = 3 * pair_caps + 16
-        out_off = np.zeros(n, dtype=np.int64)
-        if n > 1:
-            np.cumsum(out_caps[:-1], out=out_off[1:])
-        out_arr = np.empty(max(int(out_caps.sum()), 1), dtype=np.uint8)
-        out_len = np.zeros(n, dtype=np.int64)
-        lib.qh_cigar_sprint_batch(
-            ops_buf, arr(ops_off), arr(ops_len), n, 1,
-            out_arr.ctypes.data_as(ctypes.c_char_p), arr(out_off),
-            arr(out_len), n_threads)
-        return status, scores, (out_arr, out_off, out_len, status)
+        return status, scores, (*_sprint_batch(
+            lib, ops_buf, ops_off, ops_len, 1, n_threads), status)
     return status, scores, (ops_arr, ops_off, ops_len, status)
+
+
+def _sprint_batch(lib, ops_buf, ops_off, ops_len, print_matches: int,
+                  n_threads: int):
+    """`qh_cigar_sprint_batch` over packed op strings (`ops_buf` a
+    c_char_p, `ops_off`/`ops_len` int64 arrays): (out uint8 array,
+    offsets, lengths) of every RLE CIGAR. A run of r ops prints its
+    count's digits and the op, at most two characters an op."""
+    n = len(ops_len)
+    out_caps = 3 * ops_len + 16
+    out_off = np.zeros(n, dtype=np.int64)
+    if n > 1:
+        np.cumsum(out_caps[:-1], out=out_off[1:])
+    out_arr = np.empty(max(int(out_caps.sum()), 1), dtype=np.uint8)
+    out_len = np.zeros(n, dtype=np.int64)
+    lib.qh_cigar_sprint_batch(
+        ops_buf, ops_off.ctypes.data_as(_i64p), ops_len.ctypes.data_as(_i64p),
+        n, print_matches, out_arr.ctypes.data_as(ctypes.c_char_p),
+        out_off.ctypes.data_as(_i64p), out_len.ctypes.data_as(_i64p),
+        n_threads)
+    return out_arr, out_off, out_len
+
+
+def cigar_sprint_packed(ops: np.ndarray, off, lens,
+                        print_matches: bool = True) -> LazyOpsList:
+    """The RLE CIGAR (`cigar_sprint`) of every op string of a packed
+    buffer (`ops` uint8, int64 offsets and lengths into it) in one call
+    (threads inside), as a LazyOpsList whose empty strings read as None
+    (the cascade's `x if x else None`)."""
+    lib = _load()
+    ops = np.ascontiguousarray(ops, dtype=np.uint8)
+    off = np.ascontiguousarray(off, dtype=np.int64)
+    lens = np.ascontiguousarray(lens, dtype=np.int64)
+    out = _sprint_batch(lib, ops.ctypes.data_as(ctypes.c_char_p), off, lens,
+                        int(print_matches), default_threads())
+    return LazyOpsList([(*out, np.zeros(len(lens), dtype=np.int64))],
+                       empty_as_none=True)
 
 
 def hirschberg(pattern_enc: np.ndarray, pattern_raw: bytes,

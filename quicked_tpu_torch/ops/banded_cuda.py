@@ -72,11 +72,15 @@ def stage_banded(batch: BandedBatch, device="cuda") -> StagedBanded:
     lanes = {k: torch.from_numpy(
         np.ascontiguousarray(getattr(batch, k), dtype=np.int32)).to(dev)
         for k in LANE_FIELDS}
-    text = torch.from_numpy(batch.text.astype(np.uint8)).to(dev)
+    # the text goes up pair-major (as `prepare_banded_batch` builds it)
+    # and is transposed on the card for the kernels that read it
+    # lane-minor
+    text_pm = torch.from_numpy(
+        np.ascontiguousarray(batch.text.T, dtype=np.uint8)).to(dev)
     return StagedBanded(
         peq=fuse_u64(batch.peq_lo, batch.peq_hi).to(dev),
         lm=fuse_u64(batch.lm_lo, batch.lm_hi).to(dev),
-        text=text, text_pm=text.t().contiguous(),
+        text=text_pm.t().contiguous(), text_pm=text_pm,
         init_scores=torch.from_numpy(
             np.ascontiguousarray(batch.init_scores, dtype=np.int32)).to(dev),
         lanes=lanes, B=batch.B, EBB=batch.EBB, NB=batch.NB,

@@ -21,6 +21,7 @@ import torch
 from quicked_tpu_torch import native
 from quicked_tpu_torch._build import I, P, Kernel
 from quicked_tpu_torch.device import check_cuda
+from quicked_tpu_torch.ops.packed import PackedSeqs, lengths
 
 W = 64
 
@@ -115,7 +116,7 @@ def traceback_records_torch(mat_pv, mat_mv, praw, traw, plen, tlen,
 def _launch_traceback(mat_pv, mat_mv, praw, traw, plen, tlen, prolog):
     T, EBB, B = mat_pv.shape
     dev = mat_pv.device
-    check_cuda(mat_pv, mat_mv, praw, traw, plen, tlen, prolog)
+    check_cuda(mat_pv, mat_mv, plen, tlen, prolog)
     if praw.dtype != torch.uint8 or traw.dtype != torch.uint8 or \
             traw.shape != (T, B) or praw.shape[1] != B or \
             mat_mv.shape != mat_pv.shape:
@@ -132,8 +133,11 @@ def _launch_traceback(mat_pv, mat_mv, praw, traw, plen, tlen, prolog):
     opcs = torch.empty((T, B), dtype=torch.int8, device=dev)
     v_fin = torch.empty((B,), dtype=torch.int32, device=dev)
     h_fin = torch.empty((B,), dtype=torch.int32, device=dev)
-    # the walk reads each pair's characters pair-major
+    # the walk reads each pair's characters pair-major (a copy unless the
+    # frames are views of pair-major tensors, as `traceback_ops` stages
+    # them)
     praw_t, traw_t = praw.t().contiguous(), traw.t().contiguous()
+    check_cuda(mat_pv, praw_t, traw_t)
     args = (mat_pv, mat_mv, praw_t, traw_t, plen, tlen, prolog, runs, opcs,
             v_fin, h_fin)
     TRACEBACK.launch(dev, *[x.data_ptr() for x in args], B, T, EBB,
@@ -153,17 +157,23 @@ def traceback_records(mat_pv, mat_mv, praw, traw, plen, tlen, prolog):
 
 def prep_raw_frames(patterns_raw, texts_raw, T: int, PP: int,
                     pad_to_b: int | None = None):
-    """(PP, B) / (T, B) uint8 raw-char frames. Pad positions hold 0: the
-    M test only reads (v1 <= plen-1, h <= tlen-1)."""
+    """(PP, B) / (T, B) uint8 raw-char frames, lane-minor views of the
+    pair-major arrays the kernel reads. Pad positions hold 0: the M test
+    only reads (v1 <= plen-1, h <= tlen-1). The raws: lists of bytes or
+    arrays, or two PackedSeqs (framed by `PackedSeqs.frame`)."""
     B = pad_to_b or len(patterns_raw)
-    praw = np.zeros((PP, B), dtype=np.uint8)
-    traw = np.zeros((T, B), dtype=np.uint8)
+    if isinstance(patterns_raw, PackedSeqs) and \
+            isinstance(texts_raw, PackedSeqs):
+        return (patterns_raw.frame(PP, 0, np.uint8, rows=B).T,
+                texts_raw.frame(T, 0, np.uint8, rows=B).T)
+    praw = np.zeros((B, PP), dtype=np.uint8)
+    traw = np.zeros((B, T), dtype=np.uint8)
     for b, (p, t) in enumerate(zip(patterns_raw, texts_raw)):
         pa = np.frombuffer(p, dtype=np.uint8) if isinstance(p, bytes) else p
         ta = np.frombuffer(t, dtype=np.uint8) if isinstance(t, bytes) else t
-        praw[:len(pa), b] = pa
-        traw[:len(ta), b] = ta
-    return praw, traw
+        praw[b, :len(pa)] = pa
+        traw[b, :len(ta)] = ta
+    return praw.T, traw.T
 
 
 def records_to_packed(runs_bt, opcs_bt, v_fin, h_fin):
@@ -192,23 +202,26 @@ def records_to_packed(runs_bt, opcs_bt, v_fin, h_fin):
 
 
 def traceback_ops(mat_pv, mat_mv, praws, traws, plen, tlen, prolog,
-                  n: int) -> list[str]:
+                  n: int) -> native.LazyOpsList:
     """Op strings of the first n lanes from the fill's device planes
-    (counterpart of traceback_ops_from_tiled). praws/traws: raw byte
-    strings per live lane; plen/tlen/prolog: (B,) numpy vectors. Only
-    the records cross to the host."""
+    (counterpart of traceback_ops_from_tiled), as a `native.LazyOpsList`:
+    a list of str decoded on first access, whose packed op bytes a caller
+    may take as they are (`segments`). praws/traws: raw byte strings per
+    live lane, or two PackedSeqs; plen/tlen/prolog: (B,) numpy vectors.
+    Only the records cross to the host."""
     T, EBB, B = mat_pv.shape
     dev = mat_pv.device
-    maxp = max((len(p) for p in praws), default=1)
+    maxp = int(lengths(praws).max()) if len(praws) else 1
     praw_np, traw_np = prep_raw_frames(praws, traws, T, max(maxp, 1),
                                        pad_to_b=B)
 
     def lane(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
+    # the frames go up pair-major (their .T), as the kernel reads them
     runs, opcs, v_f, h_f = traceback_records(
-        mat_pv, mat_mv, torch.from_numpy(praw_np).to(dev),
-        torch.from_numpy(traw_np).to(dev), lane(plen), lane(tlen),
+        mat_pv, mat_mv, torch.from_numpy(praw_np.T).to(dev).t(),
+        torch.from_numpy(traw_np.T).to(dev).t(), lane(plen), lane(tlen),
         lane(prolog))
     # lane-major on the device: the host expansion walks records per lane
     runs_bt = runs[:, :n].T.contiguous().cpu().numpy()
@@ -221,7 +234,4 @@ def traceback_ops(mat_pv, mat_mv, praws, traws, plen, tlen, prolog,
                                        v_f, h_f)
     if packed is None:
         packed = records_to_packed(runs_bt, opcs_bt, v_f, h_f)
-    flat, starts, lens = packed
-    buf = flat.tobytes()
-    return [buf[s:s + l].decode("ascii")
-            for s, l in zip(starts.tolist(), lens.tolist())]
+    return native.LazyOpsList([(*packed, np.zeros(n, dtype=np.int64))])

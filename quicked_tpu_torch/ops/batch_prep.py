@@ -19,7 +19,8 @@ import dataclasses
 import numpy as np
 
 from quicked_tpu_torch import dna
-from quicked_tpu_torch.ops.myers_np import band_geometry, div_ceil, W
+from quicked_tpu_torch.ops.myers_np import band_geometries, div_ceil, W
+from quicked_tpu_torch.ops.packed import PackedSeqs, pack_pairs
 
 TOPBIT_HI = np.uint32(0x80000000)
 
@@ -42,26 +43,45 @@ def _pack_peq_words(enc: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 _BIT_W = (np.uint32(1) << np.arange(32, dtype=np.uint32))
 
 
-def pack_peq_batch(enc_list, num_words: int):
-    """Vectorised batch PEQ packing: list of encoded patterns ->
-    (lo, hi) of shape (num_words, 5, B) uint32, tails padded to ones.
-
-    The per-pair Python loop is the host-prep bottleneck at production
-    batch sizes; this packs the whole batch in a handful of numpy ops.
-    """
-    B = len(enc_list)
+def _peq_words(seqs, num_words: int) -> np.ndarray:
+    """(5, B, num_words, 2) little-endian u32 PEQ words of a batch: encoded
+    patterns as a list of arrays or a PackedSeqs, tails padded to ones."""
+    B = len(seqs)
     L = num_words * W
-    mat = np.full((B, L), 5, dtype=np.uint8)   # 5 = beyond-tail marker
-    for b, e in enumerate(enc_list):
-        mat[b, :len(e)] = e
+    if isinstance(seqs, PackedSeqs):
+        # 5 = beyond-tail marker; one masked assignment for the batch
+        mat = seqs.frame(L, 5, np.uint8, encoded=True)
+    else:
+        mat = np.full((B, L), 5, dtype=np.uint8)
+        for b, e in enumerate(seqs):
+            mat[b, :len(e)] = e
     # one-hot over the 5-letter alphabet; tail rows match everything
     oh = mat[None, :, :] == np.arange(5, dtype=np.uint8)[:, None, None]
     oh |= (mat == 5)[None, :, :]               # (5, B, L)
     packed = np.packbits(oh, axis=-1, bitorder="little")  # (5, B, L/8) u8
-    words = packed.view("<u4").reshape(5, B, num_words, 2)
+    return packed.view("<u4").reshape(5, B, num_words, 2)
+
+
+def pack_peq_batch(seqs, num_words: int):
+    """Vectorised batch PEQ packing: encoded patterns (a list of arrays,
+    or a PackedSeqs) -> (lo, hi) of shape (num_words, 5, B) uint32, tails
+    padded to ones.
+
+    The per-pair Python loop is the host-prep bottleneck at production
+    batch sizes; this packs the whole batch in a handful of numpy ops.
+    """
+    words = _peq_words(seqs, num_words)
     # (5, B, num_words) -> (num_words, 5, B)
     return (np.ascontiguousarray(words[..., 0].transpose(2, 0, 1)),
             np.ascontiguousarray(words[..., 1].transpose(2, 0, 1)))
+
+
+def pack_peq_pair_major(seqs, num_words: int):
+    """`pack_peq_batch` laid out pair-major: (lo, hi) of shape
+    (B, num_words, 5) uint32."""
+    words = _peq_words(seqs, num_words)
+    return (np.ascontiguousarray(words[..., 0].transpose(1, 2, 0)),
+            np.ascontiguousarray(words[..., 1].transpose(1, 2, 0)))
 
 
 #: Device-plane fields built lazily on first access (see BandedBatch).
@@ -101,7 +121,8 @@ class BandedBatch:
     peq_hi: np.ndarray | None = None
     lm_lo: np.ndarray | None = None    # (K, B) u32
     lm_hi: np.ndarray | None = None
-    text: np.ndarray | None = None     # (NB*64, B) i32
+    text: np.ndarray | None = None     # (NB*64, B) i32, a view of a
+                                       # pair-major (B, NB*64) array
     init_scores: np.ndarray | None = None  # (EBB+1, B) i32
     # original encoded sequences (host references, not device data) —
     # consumed by the host C kernel (native.run_banded_native)
@@ -143,33 +164,41 @@ def prepare_banded_batch(patterns, texts, cutoffs, *, full: bool,
                          min_ebb: int | None = None) -> BandedBatch:
     """Build a BandedBatch from python-level pairs.
 
-    patterns/texts: list of str or encoded uint8 arrays.
+    patterns/texts: lists of str or encoded uint8 arrays, or PackedSeqs.
+    A batch that packs (`packed.pack_pairs`) is encoded and framed a
+    handful of numpy calls per batch; any other takes the per-pair path.
     cutoffs: per-pair cutoff scores (before the >=65 floor).
     text_finish: per-pair processed-column counts (Hirschberg midpoints);
     defaults to the full text length.
     """
     n = len(patterns)
     assert len(texts) == n and len(cutoffs) == n
-    enc_p = [p if isinstance(p, np.ndarray) else dna.encode(p) for p in patterns]
-    enc_t = [t if isinstance(t, np.ndarray) else dna.encode(t) for t in texts]
-    plen = np.array([len(p) for p in enc_p], dtype=np.int32)
-    tlen = np.array([len(t) for t in enc_t], dtype=np.int32)
+    pk = pack_pairs(patterns, texts)
+    if pk is not None:
+        enc_p, enc_t = pk[0].arrays(), pk[1].arrays()
+        plen = pk[0].len.astype(np.int32)
+        tlen = pk[1].len.astype(np.int32)
+    else:
+        enc_p = [p if isinstance(p, np.ndarray) else dna.encode(p)
+                 for p in patterns]
+        enc_t = [t if isinstance(t, np.ndarray) else dna.encode(t)
+                 for t in texts]
+        plen = np.array([len(p) for p in enc_p], dtype=np.int32)
+        tlen = np.array([len(t) for t in enc_t], dtype=np.int32)
     if text_finish is None:
         text_finish = tlen.copy()
     text_finish = np.asarray(text_finish, dtype=np.int32)
 
-    geos = [band_geometry(int(plen[i]), int(tlen[i]), int(cutoffs[i]))
-            for i in range(n)]
+    geo = band_geometries(plen, tlen, cutoffs)
     if full:
-        ebb_p = np.array([g.ebb for g in geos], dtype=np.int32)
+        ebb_p = geo.ebb.astype(np.int32)
     else:
         # score-only kernel derives its own width (bpm_banded.c:801-803)
-        ebb_p = np.array([div_ceil(g.cutoff, W) + 1 for g in geos], dtype=np.int32)
-    prolog = np.array([g.prolog for g in geos], dtype=np.int32)
-    cutoff = np.array([g.cutoff for g in geos], dtype=np.int32)
-    finish_v = np.array([g.prolog * W + g.diff for g in geos], dtype=np.int32)
-    nbr = np.maximum(np.array([div_ceil(int(L), W) for L in plen],
-                              dtype=np.int32), 1)
+        ebb_p = (div_ceil(geo.cutoff, W) + 1).astype(np.int32)
+    prolog = geo.prolog.astype(np.int32)
+    cutoff = geo.cutoff.astype(np.int32)
+    finish_v = (geo.prolog * W + geo.diff).astype(np.int32)
+    nbr = np.maximum(div_ceil(plen, W), 1).astype(np.int32)
 
     B = pad_to_b or n
     assert B >= n
@@ -186,11 +215,12 @@ def prepare_banded_batch(patterns, texts, cutoffs, *, full: bool,
         # (the per-pair packing loop is the host-prep bottleneck at
         # production batch sizes). Runs lazily on first plane access:
         # host-C-routed score batches never pay it.
-        max_nw = max(max(div_ceil(int(L), W), 1) for L in plen) if n else 1
+        max_nw = max(div_ceil(int(plen.max()), W), 1) if n else 1
         K_ext = K + max_nw + 1
         peq_lo = np.full((K_ext, 5, B), 0xFFFFFFFF, dtype=np.uint32)
         peq_hi = np.full((K_ext, 5, B), 0xFFFFFFFF, dtype=np.uint32)
-        packed_lo, packed_hi = pack_peq_batch(enc_p, max_nw)  # (max_nw, 5, n)
+        packed_lo, packed_hi = pack_peq_batch(   # (max_nw, 5, n)
+            pk[0] if pk is not None else enc_p, max_nw)
         rows = prolog[:n][None, :] + np.arange(max_nw, dtype=np.int64)[:, None]
         idx = np.broadcast_to(rows[:, None, :], (max_nw, 5, n))
         np.put_along_axis(peq_lo[:, :, :n], idx, packed_lo, axis=0)
@@ -221,10 +251,17 @@ def prepare_banded_batch(patterns, texts, cutoffs, *, full: bool,
         lm_lo_c = np.ascontiguousarray(lm_lo[:K])
         lm_hi_c = np.ascontiguousarray(lm_hi[:K])
 
-        text = np.zeros((NB * W, B), dtype=np.int32)
-        for b in range(n):
-            tl = int(text_finish[b])
-            text[:tl, b] = enc_t[b][:tl].astype(np.int32)
+        # pair-major on the host (`stage_banded` uploads it so and
+        # transposes on the card); `text` is its (NB*64, B) view
+        if pk is not None:
+            text_pm = pk[1].frame(NB * W, 0, np.int32, rows=B,
+                                  upto=text_finish, encoded=True)
+        else:
+            text_pm = np.zeros((B, NB * W), dtype=np.int32)
+            for b in range(n):
+                tl = int(text_finish[b])
+                text_pm[b, :tl] = enc_t[b][:tl]
+        text = text_pm.T
 
         # Initial scores window covers shifted rows k in [0, EBB+1):
         # value (k - prolog + 1) * 64 (bpm_reset_search,

@@ -135,6 +135,24 @@ def band_geometry(pattern_len: int, text_len: int, cutoff_score: int) -> BandGeo
                         prolog=prolog, ebb=ebb)
 
 
+def band_geometries(pattern_lens, text_lens, cutoff_scores) -> BandGeometry:
+    """`band_geometry` of many pairs at once: a BandGeometry whose fields
+    are int64 arrays, element i that of pair i (the same integer
+    arithmetic, on arrays)."""
+    plen = np.asarray(pattern_lens, dtype=np.int64)
+    tlen = np.asarray(text_lens, dtype=np.int64)
+    diff = plen - tlen
+    cutoff = np.maximum(np.maximum(np.abs(diff) + 1,
+                                   np.asarray(cutoff_scores, np.int64)), 65)
+    rel = div_ceil(cutoff - np.abs(diff), 2)
+    pos = diff >= 0
+    prolog = np.where(pos, div_ceil(rel, W), div_ceil(rel - diff, W))
+    ebb = np.where(pos, div_ceil(rel + diff, W), div_ceil(rel, W)) \
+        + 1 + prolog
+    return BandGeometry(cutoff=cutoff, diff=diff, relative_cutoff=rel,
+                        prolog=prolog, ebb=ebb)
+
+
 def _reset_search(num_words: int):
     """bpm_reset_search (bpm_banded.c:180-197)."""
     Pv = [M64] * num_words

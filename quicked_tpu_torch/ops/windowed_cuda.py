@@ -30,8 +30,9 @@ from quicked_tpu_torch.device import check_cuda, resolve_device
 from quicked_tpu_torch.ops.banded_cuda import advance_block, fuse_u64
 from quicked_tpu_torch.ops.banded_traceback_cuda import (
     bit_at, highest_zero_at_or_below)
-from quicked_tpu_torch.ops.batch_prep import pack_peq_batch
+from quicked_tpu_torch.ops.batch_prep import pack_peq_pair_major
 from quicked_tpu_torch.ops.myers_np import div_ceil
+from quicked_tpu_torch.ops.packed import pack_pairs
 
 W = 64
 
@@ -44,7 +45,9 @@ FULL_STAGE_BYTES = 3072
 
 @dataclasses.dataclass
 class WindowedBatch:
-    """Fixed-shape arrays for one windowed kernel invocation."""
+    """Fixed-shape arrays for one windowed kernel invocation. The frames
+    are lane-minor views of pair-major arrays, the layout the kernels read
+    (`stage_windowed` uploads them so)."""
 
     B: int
     KP: int                 # pattern PEQ rows
@@ -80,48 +83,65 @@ def _raw_i32(s, enc) -> np.ndarray:
 
 def prepare_windowed_batch(patterns, texts, *, window_size: int,
                            pad_to_b: int | None = None) -> WindowedBatch:
+    """The windowed kernels' batch of the pairs (lists of str or encoded
+    arrays, or PackedSeqs). A batch that packs (`packed.pack_pairs`)
+    builds every pair-major frame by one masked assignment; any other
+    writes a row a pair."""
     n = len(patterns)
-    enc_p = [p if isinstance(p, np.ndarray) else dna.encode(p)
-             for p in patterns]
-    enc_t = [t if isinstance(t, np.ndarray) else dna.encode(t) for t in texts]
-    plen = np.array([len(p) for p in enc_p], dtype=np.int32)
-    tlen = np.array([len(t) for t in enc_t], dtype=np.int32)
+    pk = pack_pairs(patterns, texts)
+    if pk is not None:
+        plen = pk[0].len.astype(np.int32)
+        tlen = pk[1].len.astype(np.int32)
+    else:
+        enc_p = [p if isinstance(p, np.ndarray) else dna.encode(p)
+                 for p in patterns]
+        enc_t = [t if isinstance(t, np.ndarray) else dna.encode(t)
+                 for t in texts]
+        plen = np.array([len(p) for p in enc_p], dtype=np.int32)
+        tlen = np.array([len(t) for t in enc_t], dtype=np.int32)
     B = pad_to_b or n
     assert B >= n
     cols = W * window_size
-    KP = max(max(div_ceil(int(L), W), 1) for L in plen) if n else 1
+    KP = max(div_ceil(int(plen.max()), W), 1) if n else 1
     T = max(int(tlen.max()) if n else 1, cols)
     # at least one window tall: the kernel reads (cols,)-windows
     P = max(int(plen.max()) if n else 1, cols)
 
-    peq_lo = np.zeros((KP, 5, B), dtype=np.uint32)
-    peq_hi = np.zeros((KP, 5, B), dtype=np.uint32)
-    text_enc = np.zeros((T, B), dtype=np.int32)
-    text_raw = np.full((T, B), -1, dtype=np.int32)
-    pat_raw = np.full((P, B), -2, dtype=np.int32)
+    # pair-major: (B, KP, 5) PEQ words, (B, T) and (B, P) frames
+    peq_lo = np.zeros((B, KP, 5), dtype=np.uint32)
+    peq_hi = np.zeros((B, KP, 5), dtype=np.uint32)
     num_words = np.ones(B, dtype=np.int32)
-
+    if pk is not None:
+        pp, tp = pk
+        text_enc = tp.frame(T, 0, np.int32, rows=B, encoded=True)
+        text_raw = tp.frame(T, -1, np.int32, rows=B)
+        pat_raw = pp.frame(P, -2, np.int32, rows=B)
+    else:
+        text_enc = np.zeros((B, T), dtype=np.int32)
+        text_raw = np.full((B, T), -1, dtype=np.int32)
+        pat_raw = np.full((B, P), -2, dtype=np.int32)
+        for b in range(n):
+            tl = int(tlen[b])
+            text_enc[b, :tl] = enc_t[b]
+            text_raw[b, :tl] = _raw_i32(texts[b], enc_t[b])
+            pat_raw[b, :int(plen[b])] = _raw_i32(patterns[b], enc_p[b])
     if n:
-        max_nw = max(max(div_ceil(int(L), W), 1) for L in plen)
-        lo, hi = pack_peq_batch(enc_p, max_nw)   # (max_nw, 5, n)
-        peq_lo[:max_nw, :, :n] = lo
-        peq_hi[:max_nw, :, :n] = hi
+        lo, hi = pack_peq_pair_major(pk[0] if pk is not None else enc_p,
+                                     KP)          # (n, KP, 5)
+        peq_lo[:n] = lo
+        peq_hi[:n] = hi
         num_words[:n] = np.maximum((plen.astype(np.int64) + W - 1) // W, 1)
-    for b in range(n):
-        tl = int(tlen[b])
-        text_enc[:tl, b] = enc_t[b].astype(np.int32)
-        text_raw[:tl, b] = _raw_i32(texts[b], enc_t[b])
-        pl = int(plen[b])
-        pat_raw[:pl, b] = _raw_i32(patterns[b], enc_p[b])
 
     def vec(x, fill=0):
         out = np.full(B, fill, dtype=np.int32)
         out[:n] = x
         return out
 
-    return WindowedBatch(B=B, KP=KP, T=T, P=P, peq_lo=peq_lo, peq_hi=peq_hi,
-                         text_enc=text_enc, text_raw=text_raw,
-                         pat_raw=pat_raw, plen=vec(plen, fill=0),
+    return WindowedBatch(B=B, KP=KP, T=T, P=P,
+                         peq_lo=peq_lo.transpose(1, 2, 0),
+                         peq_hi=peq_hi.transpose(1, 2, 0),
+                         text_enc=text_enc.T, text_raw=text_raw.T,
+                         pat_raw=pat_raw.T, plen=vec(plen, fill=0),
                          tlen=vec(tlen, fill=0), num_words=num_words)
 
 
@@ -139,16 +159,24 @@ class StagedWindowed:
 
 
 def stage_windowed(batch: WindowedBatch, device="cuda") -> StagedWindowed:
+    """The batch on `device`, uploaded pair-major (no copy on the host
+    for a batch from `prepare_windowed_batch`); the staged fields are
+    lane-minor views of it, so `_pair_major` copies nothing but the
+    encoded text's narrowing to uint8."""
     dev = resolve_device(device)
+
+    def pm(a):      # the pair-major array behind a lane-minor frame
+        return np.ascontiguousarray(np.moveaxis(a, -1, 0))
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
     return StagedWindowed(
-        peq=fuse_u64(batch.peq_lo, batch.peq_hi).to(dev),
-        text_enc=t(batch.text_enc), text_raw=t(batch.text_raw),
-        pat_raw=t(batch.pat_raw), plen=t(batch.plen), tlen=t(batch.tlen),
-        num_words=t(batch.num_words))
+        peq=fuse_u64(pm(batch.peq_lo), pm(batch.peq_hi)).to(dev).permute(
+            1, 2, 0),
+        text_enc=t(pm(batch.text_enc)).t(), text_raw=t(pm(batch.text_raw)).t(),
+        pat_raw=t(pm(batch.pat_raw)).t(), plen=t(batch.plen),
+        tlen=t(batch.tlen), num_words=t(batch.num_words))
 
 
 def _lshr(x, s):
@@ -468,7 +496,9 @@ def _check_windowed(st: StagedWindowed, WS: int):
     if T < W * WS or P_ < W * WS:
         raise ValueError("windowed batch shorter than one window")
     lanes = (st.plen, st.tlen, st.num_words)
-    check_cuda(st.peq, st.text_enc, st.text_raw, st.pat_raw, *lanes)
+    # the staged frames may be lane-minor views: the kernels read their
+    # pair-major copies (`_pair_major`), which the launches check
+    check_cuda(*lanes)
     if st.peq.dtype != torch.int64 or five != 5 or any(
             x.dtype != torch.int32 for x in
             (st.text_enc, st.text_raw, st.pat_raw, *lanes)):
@@ -498,7 +528,9 @@ def _kernel_inputs(st: StagedWindowed, WS: int, B: int):
         max_shared_bytes(dev.index))
     scratch = (torch.empty((B, geo.scratch_bytes), dtype=torch.uint8,
                            device=dev) if geo.scratch_bytes else None)
-    return geo, _pair_major(st), scratch
+    bufs = _pair_major(st)
+    check_cuda(*bufs)
+    return geo, bufs, scratch
 
 
 def _launch_windowed(st: StagedWindowed, WS: int, OVL: int,
@@ -537,6 +569,7 @@ def _full_launch(st: StagedWindowed, WS: int, OVL: int,
         WS, B, torch.cuda.get_device_properties(dev).multi_processor_count,
         max_shared_bytes(dev.index), shared)
     bufs = _pair_major(st)
+    check_cuda(*bufs)
     scratch = (torch.empty((B, geo.scratch_bytes), dtype=torch.uint8,
                            device=dev) if geo.scratch_bytes else None)
     L = ops_width(P_, T)

@@ -116,3 +116,45 @@ def test_torch_quicked_aligner_object():
                                                ref.getCigar())
     assert api.BatchAligner(device="cpu").align([(p, t)]).cigar[0] == \
         jax_api.BatchAligner().align([(p, t)]).cigar[0]
+
+
+def _cascade_same(pairs):
+    """The port's cascade on the CPU (quicked_cascade_batch, the staged
+    lane: every pair packed) against quicked_tpu.api.align_batch, pair
+    for pair."""
+    from quicked_tpu_torch import native
+    from quicked_tpu_torch.aligner import cascade
+    from quicked_tpu_torch.params import QuickedParams as TorchParams
+
+    want = jax_api.align_batch(pairs, QuickedParams())
+    timers = PhaseTimers()
+    got = cascade.quicked_cascade_batch(pairs, TorchParams(), timers=timers,
+                                        device="cpu")
+    assert [int(s) for s in got.status] == [int(s) for s in want.status]
+    assert list(got.score) == list(want.score)
+    assert list(got.cigar) == list(want.cigar)
+    # the CIGARs came from the packed op bytes in one host C call
+    assert isinstance(got.cigar, native.LazyOpsList) == native.available()
+    return timers
+
+
+def test_torch_cascade_packed_short_reads():
+    """2,000 short pairs, 100 bp at 1-5% error (the short-read cell's mix
+    at a fiftieth of its size), through the packed staging of every
+    stage."""
+    pairs = []
+    for k, err in enumerate((0.01, 0.02, 0.03, 0.04, 0.05)):
+        pairs += _pairs(400, 100, err, 67 + k)
+    _cascade_same(pairs)
+
+
+def test_torch_cascade_packed_mixed_lengths():
+    """100 bp pairs beside 5 kbp pairs with large indels: several windowed
+    buckets, stage 2's reversed pairs and stage 3 from the packed
+    buffers."""
+    pairs = (_pairs(12, 100, 0.05, 81, indels_num=1, indels_length=10)
+             + _pairs(1, 5000, 0.1, 82, indels_num=2, indels_length=300)
+             + _pairs(5, 100, 0.02, 83) + _pairs(1, 5000, 0.05, 84))
+    timers = _cascade_same(pairs)
+    assert timers.windowed_l.count.samples == 1
+    assert timers.banded.count.samples == 1

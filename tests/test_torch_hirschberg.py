@@ -14,6 +14,7 @@ from quicked_tpu.ops import edit_dp, myers_np
 from quicked_tpu.params import QuickedParams, QuickedStatus
 from quicked_tpu_torch.aligner import batch, cascade
 from quicked_tpu_torch.aligner import hirschberg as hb
+from quicked_tpu_torch.ops.packed import PackedSeqs
 
 from .test_torch_copies import jax_warmup_inline  # noqa: F401
 
@@ -101,8 +102,9 @@ def test_torch_cascade_ignores_hirschberg_failure(monkeypatch):
     """run_quicked returns the partial results as success even when the
     Hirschberg stage fails (quicked.c:290-305)."""
     def failing(texts, patterns, cutoffs, device="cuda"):
-        return [(QuickedStatus.QUICKED_FAIL_NON_CONVERGENCE, "MMMM")
-                for _ in texts]
+        return hb.HirschbergResult(
+            [QuickedStatus.QUICKED_FAIL_NON_CONVERGENCE] * len(texts),
+            PackedSeqs.of_bytes(["MMMM"] * len(texts)))
 
     monkeypatch.setattr(hb, "hirschberg_batch", failing)
     res = cascade.quicked_cascade_batch([("ACGT", "ACGT")], QuickedParams(),
